@@ -1,0 +1,265 @@
+"""g2o / TORO / SLAM++ dataset parser and parse loop (counterpart of
+``slampp_tpu/io/parser.py``).
+
+``parse_tokens`` and ``parse_file`` are NumPy copies of the JAX package's
+(token-alias table and storage conversions of ParsePrimitives.h).  The port's
+``build_system`` takes the SE(2) pose-graph records; any other record kind
+raises ``ValueError`` naming the kind until its model is ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, List, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class ParsedRecord:
+    kind: str  # canonical record kind, e.g. "edge2", "vertex_cam", "marker"
+    ids: tuple
+    values: np.ndarray  # measurement / state payload
+    info: Optional[np.ndarray] = None  # information matrix (res_dim x res_dim)
+
+
+def _upper_tri(vals, n):
+    m = np.zeros((n, n))
+    k = 0
+    for i in range(n):
+        for j in range(i, n):
+            m[i, j] = vals[k]
+            m[j, i] = vals[k]
+            k += 1
+    return m
+
+
+def _np_rpy_to_rot(p3, p4, p5):
+    """The reference's RPY convention (ParsePrimitives.h:520-531)."""
+    cx, sx = np.cos(p5), np.sin(p5)
+    cy, sy = np.cos(p4), np.sin(p4)
+    cz, sz = np.cos(p3), np.sin(p3)
+    return np.array(
+        [
+            [cy * cx, -cz * sx + sz * sy * cx, sz * sx + cz * sy * cx],
+            [cy * sx, cz * cx + sz * sy * sx, -sz * cx + cz * sy * sx],
+            [-sy, sz * cy, cz * cy],
+        ]
+    )
+
+
+def _np_rot_to_aa(R):
+    q = _np_rot_to_quat(R)
+    return _np_quat_to_aa(q)
+
+
+def _np_rot_to_quat(R):
+    t = np.trace(R)
+    qw = np.sqrt(max(0.0, 1.0 + t)) / 2.0
+    qx = np.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2])) / 2.0
+    qy = np.sqrt(max(0.0, 1.0 - R[0, 0] + R[1, 1] - R[2, 2])) / 2.0
+    qz = np.sqrt(max(0.0, 1.0 - R[0, 0] - R[1, 1] + R[2, 2])) / 2.0
+    qx = np.copysign(qx, R[2, 1] - R[1, 2])
+    qy = np.copysign(qy, R[0, 2] - R[2, 0])
+    qz = np.copysign(qz, R[1, 0] - R[0, 1])
+    q = np.array([qw, qx, qy, qz])
+    return q / np.linalg.norm(q)
+
+
+def _np_quat_to_aa(q):
+    w, v = q[0], q[1:]
+    vn = np.linalg.norm(v)
+    if vn < 1e-12:
+        return v * 2.0
+    half = np.copysign(np.arctan2(vn, abs(w)), w if w != 0 else 1.0)
+    return v * (2.0 * half / vn)
+
+
+def _np_quat_conj(q):
+    return np.array([q[0], -q[1], -q[2], -q[3]])
+
+
+def _np_quat_rotate(q, v):
+    uv = 2.0 * np.cross(q[1:], v)
+    return v + q[0] * uv + np.cross(q[1:], uv)
+
+
+# Token aliases -> canonical kind (ParsePrimitives.h EnumerateTokens calls).
+_TOKENS_2D_EDGE = {"EDGE2", "EDGE_SE2", "EDGE", "ODOMETRY"}
+_TOKENS_2D_VERTEX = {"VERTEX2", "VERTEX_SE2", "VERTEX"}
+_TOKENS_2D_LANDMARK_XY = {"LANDMARK2:XY", "EDGE_SE2_XY", "EDGE_BEARING_SE2_XY", "LANDMARK"}
+_TOKENS_2D_LANDMARK_RB = {"LANDMARK2:RB", "EDGE_SE2_RB", "EDGE_BEARING_SE2_RB"}
+_TOKENS_3D_EDGE = {"EDGE3", "EDGE_SE3"}
+_TOKENS_3D_EDGE_AA = {"EDGE3:AXISANGLE", "EDGE_SE3:AXISANGLE"}
+_TOKENS_3D_VERTEX = {"VERTEX3", "VERTEX_SE3"}
+_TOKENS_3D_LANDMARK = {"LANDMARK3:XYZ", "EDGE_SE3_XYZ"}
+_TOKENS_P2C = {"EDGE_PROJECT_P2MC", "EDGE_P2MC", "EDGE_P2C"}
+_TOKENS_P2CI = {"EDGE_PROJECT_P2MCI", "EDGE_P2MCI", "EDGE_P2CI"}
+_TOKENS_P2SC = {"EDGE_PROJECT_P2SC", "EDGE_P2SC"}
+
+
+def parse_tokens(token: str, f: List[float]) -> Optional[ParsedRecord]:
+    """Parse one line's token + numeric fields into a canonical record."""
+    if token in _TOKENS_2D_EDGE:
+        i, j = int(f[0]), int(f[1])
+        return ParsedRecord("edge2", (i, j), np.array(f[2:5]), _upper_tri(f[5:11], 3))
+    if token in _TOKENS_2D_VERTEX:
+        return ParsedRecord("vertex2", (int(f[0]),), np.array(f[1:4]))
+    if token in _TOKENS_2D_LANDMARK_XY:
+        return ParsedRecord(
+            "landmark2_xy", (int(f[0]), int(f[1])), np.array(f[2:4]), _upper_tri(f[4:7], 2)
+        )
+    if token in _TOKENS_2D_LANDMARK_RB:
+        return ParsedRecord(
+            "landmark2_rb", (int(f[0]), int(f[1])), np.array(f[2:4]), _upper_tri(f[4:7], 2)
+        )
+    if token in _TOKENS_3D_EDGE:
+        i, j = int(f[0]), int(f[1])
+        aa = _np_rot_to_aa(_np_rpy_to_rot(f[5], f[6], f[7]))
+        meas = np.concatenate([np.array(f[2:5]), aa])
+        return ParsedRecord("edge3", (i, j), meas, _upper_tri(f[8:29], 6))
+    if token in _TOKENS_3D_EDGE_AA:
+        i, j = int(f[0]), int(f[1])
+        return ParsedRecord("edge3", (i, j), np.array(f[2:8]), _upper_tri(f[8:29], 6))
+    if token in _TOKENS_3D_VERTEX:
+        aa = _np_rot_to_aa(_np_rpy_to_rot(f[4], f[5], f[6]))
+        return ParsedRecord("vertex3", (int(f[0]),), np.concatenate([np.array(f[1:4]), aa]))
+    if token == "VERTEX_SE3:AXISANGLE":
+        return ParsedRecord("vertex3", (int(f[0]),), np.array(f[1:7]))
+    if token in _TOKENS_3D_LANDMARK:
+        return ParsedRecord(
+            "landmark3_xyz", (int(f[0]), int(f[1])), np.array(f[2:5]), _upper_tri(f[5:11], 3)
+        )
+    if token == "VERTEX_XYZ":
+        return ParsedRecord("vertex_xyz", (int(f[0]),), np.array(f[1:4]))
+    if token in ("VERTEX_CAM", "VERTEX_SCAM"):
+        # dataset: x y z qx qy qz qw fx fy cx cy d(/baseline); stored state is
+        # the inverted (world-to-camera) pose (ParsePrimitives.h:902-915)
+        t = np.array(f[1:4])
+        q = np.array([f[7], f[4], f[5], f[6]])  # (w, x, y, z)
+        q = q / np.linalg.norm(q)
+        qi = _np_quat_conj(q)
+        c = _np_quat_rotate(qi, -t)
+        aa = _np_quat_to_aa(qi)
+        state = np.concatenate([c, aa, np.array(f[8:13])])
+        kind = "vertex_cam" if token == "VERTEX_CAM" else "vertex_scam"
+        return ParsedRecord(kind, (int(f[0]),), state)
+    if token == "VERTEX_INTRINSICS":
+        return ParsedRecord("vertex_intrinsics", (int(f[0]),), np.array(f[1:6]))
+    if token in _TOKENS_P2C:
+        # (point_id, camera_id, ox, oy, XX XY YY)
+        return ParsedRecord(
+            "edge_p2c", (int(f[0]), int(f[1])), np.array(f[2:4]), _upper_tri(f[4:7], 2)
+        )
+    if token in _TOKENS_P2CI:
+        return ParsedRecord(
+            "edge_p2ci",
+            (int(f[0]), int(f[1]), int(f[2])),
+            np.array(f[3:5]),
+            _upper_tri(f[5:8], 2),
+        )
+    if token in _TOKENS_P2SC:
+        return ParsedRecord(
+            "edge_p2sc", (int(f[0]), int(f[1])), np.array(f[2:5]), _upper_tri(f[5:11], 3)
+        )
+    if token == "VERTEX_SPHERON:QUAT":
+        # id x y z qx qy qz qw -> position + axis-angle (ParsePrimitives.h:1065)
+        q = np.array([f[7], f[4], f[5], f[6]])
+        q = q / np.linalg.norm(q)
+        aa = _np_quat_to_aa(q)
+        return ParsedRecord(
+            "vertex_spheron", (int(f[0]),), np.concatenate([np.array(f[1:4]), aa])
+        )
+    if token == "EDGE_SPHERON_XYZ":
+        # pose_id lm_id mx my mz info6 (ParsePrimitives.h:696)
+        return ParsedRecord(
+            "edge_spheron_xyz", (int(f[0]), int(f[1])), np.array(f[2:5]),
+            _upper_tri(f[5:11], 3),
+        )
+    if token in ("ROCV:RECEIVER", "ROCV:RECEIVER_GT", "ROCV:RECEIVER_GTFAKE"):
+        # id x y z vx vy vz (ParsePrimitives.h:1495-1569)
+        return ParsedRecord("vertex_posvel", (int(f[0]),), np.array(f[1:7]))
+    if token == "ROCV:TRANSMITTER":
+        # landmark3d-typed (the rocv edges couple posvel3d <-> landmark3d)
+        return ParsedRecord("vertex_rocv_lm", (int(f[0]),), np.array(f[1:4]))
+    if token == "ROCV:TRANSMITTER_UF":
+        # id info6 (3x3 upper tri) — absolute position unary factor
+        # (TUnaryFactor3D, ParsePrimitives.h:1443)
+        return ParsedRecord(
+            "rocv_transmitter_uf", (int(f[0]),), np.zeros(0), _upper_tri(f[1:7], 3)
+        )
+    if token == "ROCV:DELTA_TIME":
+        # prev cur dt info21 (6x6 upper tri) (ParsePrimitives.h:1604)
+        return ParsedRecord(
+            "edge_rocv_dt", (int(f[0]), int(f[1])), np.array(f[2:3]),
+            _upper_tri(f[3:24], 6),
+        )
+    if token == "ROCV:RANGE":
+        # posvel_id lm_id range info1 (ParsePrimitives.h:1680+)
+        return ParsedRecord(
+            "edge_rocv_range", (int(f[0]), int(f[1])), np.array(f[2:3]),
+            np.array([[f[3]]]),
+        )
+    if token == "PHASE":
+        return ParsedRecord("phase", (), np.zeros(0))
+    if token == "EQUIV":
+        return ParsedRecord("equiv", (int(f[0]), int(f[1])), np.zeros(0))
+    return None
+
+
+def parse_file(path: str, max_lines: Optional[int] = None) -> List[ParsedRecord]:
+    """Parse a dataset file into canonical records (file order preserved)."""
+    out: List[ParsedRecord] = []
+    with open(path, "r") as fh:
+        for lineno, line in enumerate(fh):
+            if max_lines is not None and lineno >= max_lines:
+                break
+            line = line.strip()
+            if not line or line.startswith("#") or line.startswith("%"):
+                continue
+            parts = line.split()
+            token = parts[0].upper()
+            if token == "CONSISTENCY_MARKER":
+                out.append(ParsedRecord("marker", (), np.zeros(0)))
+                continue
+            try:
+                fields = [float(x) for x in parts[1:]]
+            except ValueError:
+                # non-numeric payload: hard error like the reference traits
+                # "fail" entries (SE2_Types.h:629) — silent data loss is worse
+                raise ValueError(
+                    f"{path}:{lineno + 1}: unknown token {token!r} "
+                    "(non-numeric payload)"
+                ) from None
+            try:
+                rec = parse_tokens(token, fields)
+            except IndexError:
+                raise ValueError(
+                    f"{path}:{lineno + 1}: line is truncated ({token})"
+                ) from None
+            if rec is None:
+                raise ValueError(f"{path}:{lineno + 1}: unknown token {token!r}")
+            out.append(rec)
+    return out
+
+
+def build_system(records: Iterable[ParsedRecord], system=None):
+    """Feed parsed SE(2) records through the parse loop into a GraphSystem.
+
+    Pose-graph problems ignore VERTEX ground-truth lines
+    (CIgnoreAllVertexTraits, Solve2DImpl.cpp:50) and initialize vertices by
+    composing measurements.  Returns the populated system."""
+    from slampp_tpu_torch.graph.system import GraphSystem
+    from slampp_tpu_torch.models import se2 as m_se2
+
+    if system is None:
+        system = GraphSystem()
+    for rec in records:
+        if rec.kind == "vertex2":
+            continue
+        if rec.kind != "edge2":
+            raise ValueError(f"unhandled record kind {rec.kind!r} (not ported yet)")
+        system.add_edge(
+            "edge_pose2d", rec.ids, rec.values, rec.info, m_se2.POSE_POSE_INITIALIZERS
+        )
+    return system
