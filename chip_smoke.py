@@ -9,8 +9,12 @@ the run with a non-zero exit code and no result line:
   1. device   a CUDA card must be present (no CPU continuation);
   2. build    the hand-written kernels from slampp_tpu_torch/csrc;
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes, in float32 and float64, timed against
-              the plain version with CUDA events;
+              the main path's shapes, in float32 and float64, with frozen
+              pivots, and (TRSMs) at an M beyond the resident slab size
+              and one at which each x_p is pulled, not pushed;
+              timed against the plain version with CUDA events around 20
+              calls (ms, host launch path included) and as device time per
+              launch from torch.profiler (device_ms);
   4. main     manhattan3500, mixed precision, chain mode, target 64,
               refine 0, 5 fused GN iterations; chi2 within 5e-3 of the f64
               oracle 404.504, every kernel launched by that run;
@@ -82,10 +86,35 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn``: the summed duration of the device
+    events (kernels, copies) that ``reps`` calls leave in a torch.profiler
+    trace, over ``reps``.  Unlike CUDA events around the calls, it leaves out
+    the host's time between launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # a trace now and then comes back without its device events: take another
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1000.0 / reps
+    raise RuntimeError("the profiler recorded no device time")
+
+
 def _check_kernels(dev):
     """Phase 3: every kernel against its plain version at the path's shapes.
-    Returns {kernel: (max_abs_err, ms, plain_ms)} with the times at the main
-    path's own shape (the float32 separator)."""
+    Returns {kernel: [max_abs_err, ms, plain_ms, device_ms, plain_device_ms]}
+    with the times at the main path's own shape (the float32 separator)."""
     import numpy as np
     import torch
 
@@ -101,21 +130,31 @@ def _check_kernels(dev):
         A[:, keep, keep] += M
         return A
 
-    cases = [  # (kernel, K, M, S, frozen pivots)
+    frozen = (5, 200, 487)
+    cases = [  # (kernel, K, M, S, frozen pivots); M = 1096 is beyond the
+        # TRSMs' resident slab size in both precisions, and at M = 3104 the
+        # f64 solve pulls each x_p (its x tiles no longer fit every CTA)
         ("chol_batched", 55, 192, None, ()),
         ("chol_batched", 1, 488, None, ()),
-        ("chol_batched", 1, 488, None, (5, 200, 487)),
+        ("chol_batched", 1, 488, None, frozen),
         ("trsm_lower_batched", 55, 192, 48, ()),
+        ("trsm_lower_batched", 55, 192, 8, ()),
         ("trsm_lower_batched", 1, 488, 8, ()),
+        ("trsm_lower_batched", 1, 488, 8, frozen),
+        ("trsm_lower_batched", 1, 1096, 8, ()),
+        ("trsm_lower_batched", 1, 3104, 8, ()),
         ("trsm_lower_t_batched", 55, 192, 8, ()),
         ("trsm_lower_t_batched", 1, 488, 8, ()),
+        ("trsm_lower_t_batched", 1, 488, 8, frozen),
+        ("trsm_lower_t_batched", 1, 1096, 8, ()),
+        ("trsm_lower_t_batched", 1, 3104, 8, ()),
     ]
     main_shape = {"chol_batched": (1, 488), "trsm_lower_batched": (1, 488),
                   "trsm_lower_t_batched": (1, 488)}
     plain = {"chol_batched": dk.chol_batched_plain,
              "trsm_lower_batched": dk.trsm_lower_batched_plain,
              "trsm_lower_t_batched": dk.trsm_lower_t_batched_plain}
-    summary = {k: [0.0, None, None] for k in plain}
+    summary = {k: [0.0, None, None, None, None] for k in plain}
     for name, K, M, S, zero_rows in cases:
         A64 = spd(K, M, zero_rows)
         B64 = rng.normal(size=(K, M, S)) if S else None
@@ -148,11 +187,17 @@ def _check_kernels(dev):
             info = {"kernel": name, "shape": [K, M, S] if S else [K, M, M],
                     "dtype": str(dtype).split(".")[1], "frozen": list(zero_rows),
                     "max_abs_err": err, "rel_err": rel, "tol": tol}
-            if dtype == torch.float32 and not zero_rows:
+            if dtype == torch.float32 and not zero_rows and M <= 488:
                 info["ms"] = _time_ms(lambda: kern(*args))
                 info["plain_ms"] = _time_ms(lambda: plain[name](*args))
+                info["device_ms"] = _device_ms(lambda: kern(*args))
+                # the plain Cholesky is thousands of small launches a call
+                info["plain_device_ms"] = _device_ms(
+                    lambda: plain[name](*args), reps=2 if name == "chol_batched" else 20,
+                    warmup=1)
                 if (K, M) == main_shape[name]:
-                    summary[name][1:] = [info["ms"], info["plain_ms"]]
+                    summary[name][1:] = [info["ms"], info["plain_ms"], info["device_ms"],
+                                         info["plain_device_ms"]]
             if not zero_rows:
                 summary[name][0] = max(summary[name][0], err)
             _line("kernels", finite and rel <= tol, time.perf_counter() - t0, **info)
@@ -227,7 +272,8 @@ def main() -> int:
         "chi2_final": main["chi2_final"], "chi2_ok": True, "card": smi}}))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-         "launches": launches[k], "max_abs_err": v[0], "ms": v[1], "plain_ms": v[2]}
+         "launches": launches[k], "max_abs_err": v[0], "ms": v[1], "plain_ms": v[2],
+         "device_ms": v[3], "plain_device_ms": v[4]}
         for k, v in summary.items()
     ]}))
     print(smi)

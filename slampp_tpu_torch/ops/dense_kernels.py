@@ -9,7 +9,8 @@ dispatches on the device of its input:
   (``csrc/dense_kernels.cu``, built at first use by ``ops/_cuda.py``) or
   raises — on a build failure, a refused launch, or an input the kernel does
   not take (dtype other than float32/float64, non-contiguous, M not a
-  multiple of ``PB``).  There is no fallback from CUDA to the plain version.
+  multiple of ``PB``, data not 16-byte aligned).  There is no fallback from
+  CUDA to the plain version.
 
 Both precisions reach the kernel on the card, including the exact f64 mode
 of the solver; the JAX package sent f64 to its lax reference only because
@@ -119,6 +120,8 @@ def _cuda_args(name: str, *ts: torch.Tensor):
             raise ValueError(f"{name}: operands differ in device or dtype")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 16:  # the kernels' bulk copies need 16-byte aligned rows
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
     if len(ts) > 1:
         B = ts[1]
         if B.dim() != 3 or B.shape[0] != K or B.shape[1] != M or B.shape[2] < 1:

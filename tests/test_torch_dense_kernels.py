@@ -83,6 +83,71 @@ def test_frozen_pivot_matches_jax(dtype, atol):
         assert np.abs(L[0, z + 1 :, z]).max() < 1e-6
 
 
+def _inv_lower(D):
+    """Inverse of (K, w, w) lower blocks as the TRSM kernel forms it: column
+    j is the substitution on e_j, one row at a time, multiplying by the
+    pivots' reciprocals."""
+    K, w, _ = D.shape
+    rcp = 1.0 / torch.diagonal(D, dim1=1, dim2=2)
+    cols = []
+    for j in range(w):
+        v = torch.zeros(K, w, dtype=D.dtype)
+        v[:, j] = 1.0
+        for r in range(j, w):
+            xr = v[:, r] * rcp[:, r]
+            v[:, r + 1 :] -= D[:, r + 1 :, r] * xr[:, None]
+            v[:, r] = xr
+        cols.append(v)
+    return torch.stack(cols, -1)
+
+
+def _wavefront_trsm(L, B, bwd):
+    """The TRSM kernel's arithmetic (csrc/dense_kernels.cu, trsm_kernel):
+    inverted 32x32 diagonal blocks, panels in wavefront order (down for
+    L^-1 B, up for L^-T B), each published x_p applied to the panels the
+    wavefront has not reached."""
+    M = L.shape[1]
+    nb = 32
+    sl = [slice(p, min(p + nb, M)) for p in range(0, M, nb)]
+    acc = [B[:, s].clone() for s in sl]
+    x = [None] * len(sl)
+    order = range(len(sl) - 1, -1, -1) if bwd else range(len(sl))
+    for step, p in enumerate(order):
+        Dinv = _inv_lower(L[:, sl[p], sl[p]])
+        x[p] = (Dinv.transpose(1, 2) if bwd else Dinv) @ acc[p]
+        for i in list(order)[step + 1 :]:
+            A = L[:, sl[p], sl[i]].transpose(1, 2) if bwd else L[:, sl[i], sl[p]]
+            acc[i] -= A @ x[p]
+    return torch.cat(x, 1)
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("case", ["sep_1x488x8", "3x40x13", "frozen", "1x1096x8"])
+def test_wavefront_trsm_matches_jax(case, bwd):
+    """The TRSM kernel's explicit-inverse wavefront, written in plain torch,
+    and the port's trsm_lower_batched / trsm_lower_t_batched (their plain
+    path on a CPU tensor) against the JAX package's (lax triangular_solve on
+    the CPU): f64, 1e-10 relative."""
+    jnp = pytest.importorskip("jax.numpy")
+    from slampp_tpu.ops import dense_kernels as jdk
+
+    rng = np.random.default_rng(21)
+    if case == "frozen":
+        A, S = _frozen_case(rng, M=72, zero_rows=(3, 40, 70)), 8
+    else:
+        K, M, S = {"sep_1x488x8": (1, 488, 8), "3x40x13": (3, 40, 13),
+                   "1x1096x8": (1, 1096, 8)}[case]
+        A = _spd(rng, K, M)
+    L = dk.chol_batched(torch.from_numpy(A), clamp=1e-8)
+    B = torch.from_numpy(rng.normal(size=(A.shape[0], A.shape[1], S)))
+    jfn = jdk.trsm_lower_t_batched if bwd else jdk.trsm_lower_batched
+    ref = np.asarray(jfn(jnp.asarray(L.numpy()), jnp.asarray(B.numpy())))
+    port = dk.trsm_lower_t_batched if bwd else dk.trsm_lower_batched
+    for X in (_wavefront_trsm(L, B, bwd).numpy(), port(L, B).numpy()):
+        assert np.isfinite(X).all()
+        assert np.abs(X - ref).max() / np.abs(ref).max() < 1e-10
+
+
 def test_cpu_dispatch_launches_no_kernel():
     dk.reset_launches()
     rng = np.random.default_rng(3)
@@ -139,6 +204,79 @@ def test_cuda_frozen_pivot_matches_plain(cuda, dtype):
     torch.testing.assert_close(L, dk.chol_batched_plain(A, 1e-8), rtol=1e-5, atol=1e-5)
 
 
+def _check_trsm(bwd, L, B):
+    """A TRSM kernel against its plain version: f64 max |kernel - plain|
+    over max |plain| within 1e-10; f32 relative residual within 1e-4."""
+    fn = dk.trsm_lower_t_batched if bwd else dk.trsm_lower_batched
+    plain = dk.trsm_lower_t_batched_plain if bwd else dk.trsm_lower_batched_plain
+    X = fn(L, B)
+    ref = plain(L, B)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(X).all())
+    if L.dtype == torch.float64:
+        assert float((X - ref).abs().max() / ref.abs().max()) < 1e-10
+    else:
+        Lop = L.transpose(1, 2) if bwd else L
+        assert float((Lop @ X - B).abs().max() / B.abs().max()) < 1e-4
+
+
+# the main path's shapes, several column groups in one cluster with S not a
+# multiple of 8, a partial panel, one panel, and M beyond the resident size
+# (f64 from 584, f32 from 928)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("K,M,S", [(1, 488, 8), (55, 192, 48), (55, 192, 8), (55, 192, 43),
+                                   (3, 40, 13), (2, 8, 1), (1, 1032, 8), (1, 1096, 8)])
+def test_cuda_trsm_match_plain(cuda, dtype, bwd, K, M, S):
+    rng = np.random.default_rng(M + S)
+    L = dk.chol_batched(torch.from_numpy(_spd(rng, K, M)).to(cuda, dtype))
+    B = torch.from_numpy(rng.normal(size=(K, M, S))).to(cuda, dtype)
+    dk.reset_launches()
+    _check_trsm(bwd, L, B)
+    assert dk.launches["trsm_lower_t_batched" if bwd else "trsm_lower_batched"] == 1
+
+
+def _device_chol(cuda, M, dtype):
+    """Cholesky factor of a well-conditioned (1, M, M) SPD matrix, made on
+    the card (a large M would take seconds through numpy)."""
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    G = torch.randn(1, M, M, device=cuda, dtype=torch.float64, generator=gen)
+    A = G @ G.transpose(1, 2) / M + torch.eye(M, device=cuda, dtype=torch.float64)
+    return torch.linalg.cholesky(A).to(dtype).contiguous()
+
+
+# M where each CTA no longer holds every x_p (f64 from 2568, f32 from 5128),
+# up to the largest M with a plan on a 227 KB opt-in (f64 7680, f32 12288)
+@pytest.mark.gpu
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("dtype,M", [(torch.float64, 3104), (torch.float64, 7680),
+                                     (torch.float32, 6336), (torch.float32, 12288)])
+def test_cuda_trsm_large_m_matches_plain(cuda, dtype, bwd, M):
+    L = _device_chol(cuda, M, dtype)
+    B = torch.randn(1, M, 8, device=cuda, dtype=torch.float64,
+                    generator=torch.Generator(device=cuda).manual_seed(1)).to(dtype)
+    _check_trsm(bwd, L, B)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,M", [(torch.float64, 7688), (torch.float32, 12296)])
+def test_cuda_trsm_beyond_largest_plan_raises(cuda, dtype, M):
+    L = torch.eye(M, device=cuda, dtype=dtype)[None]
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        dk.trsm_lower_batched(L, torch.zeros(1, M, 8, device=cuda, dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
+def test_cuda_trsm_frozen_pivot_matches_plain(cuda, dtype, bwd):
+    rng = np.random.default_rng(9)
+    A = torch.from_numpy(_frozen_case(rng, M=488, zero_rows=(5, 200, 487))).to(cuda, dtype)
+    L = dk.chol_batched(A, clamp=1e-8)
+    _check_trsm(bwd, L, torch.from_numpy(rng.normal(size=(1, 488, 8))).to(cuda, dtype))
+
+
 @pytest.mark.gpu
 def test_cuda_rejects_unsupported_input(cuda):
     A = torch.eye(16, device=cuda).repeat(2, 1, 1)
@@ -150,3 +288,6 @@ def test_cuda_rejects_unsupported_input(cuda):
         dk.chol_batched(A.half())
     with pytest.raises(ValueError):
         dk.trsm_lower_batched(A, torch.zeros(2, 16, 8, device=cuda)[:, :, ::2])
+    buf = torch.zeros(2 * 16 * 8 + 1, device=cuda)
+    with pytest.raises(ValueError):  # contiguous, but 4 bytes off a 16-byte boundary
+        dk.trsm_lower_batched(A, buf[1:].view(2, 16, 8))
