@@ -142,7 +142,9 @@ def profile(n_poses: int, device, n_iters: int = 5, target: int = 64, refine: in
 if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     n = int(args[0]) if args else 3500
-    dev = args[1] if len(args) > 1 else ("cuda" if torch.cuda.is_available() else "cpu")
+    dev = args[1] if len(args) > 1 else "cuda"
+    if dev != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device is available for {dev!r}; name 'cpu' to run on the CPU")
     if "--profile" in sys.argv:
         res = profile(n, dev, dense_frames="--dense-frames" in sys.argv)
     else:

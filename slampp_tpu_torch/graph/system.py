@@ -186,7 +186,7 @@ class GraphSystem:
         return self._layout()[1]
 
     # --------------------------------------------------------------- snapshot
-    def snapshot(self, device="cpu") -> GraphArrays:
+    def snapshot(self, device="cuda") -> GraphArrays:
         """Freeze the graph into tensors on ``device``."""
         offsets, total = self._layout()
         dummy = total  # offset of const vertices

@@ -133,6 +133,15 @@ class V3Plan(NamedTuple):
         })
 
 
+def _require_device(device: torch.device) -> None:
+    """The solver runs where the caller put it: on the card unless ``cpu``
+    is named, never on the CPU in place of a missing card."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "PartitionedSolver: no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+
+
 class PartitionedSolver:
     """v3 engine over a GraphSystem whose vertices share one block size."""
 
@@ -143,7 +152,7 @@ class PartitionedSolver:
         mixed_precision: bool = True,
         refine_iters: int = 1,
         damping_rel: float = 1e-6,
-        device="cpu",
+        device="cuda",
     ):
         self.system = system
         self.target = target
@@ -157,6 +166,7 @@ class PartitionedSolver:
 
     # ------------------------------------------------------------------ host
     def symbolic(self) -> None:
+        _require_device(self.device)
         system = self.system
         block_of_vid = {vid: b for b, vid in enumerate(system._vorder)}
         n = len(block_of_vid)

@@ -97,7 +97,7 @@ def test_scatter_dx_matches_jax(jax_graph_and_plan):
 
 def test_build_block_plan_matches_jax(jax_graph_and_plan):
     _, jbp = jax_graph_and_plan
-    ps = PartitionedSolver(port_system(150), target=32)
+    ps = PartitionedSolver(port_system(150), target=32, device="cpu")
     ps.symbolic()
     bp = ps.block_plan
     assert (bp.n, bp.bs, bp.nnzb, bp.state_dim, bp.type_order) == (

@@ -47,7 +47,7 @@ def _dense_dx(graph):
 def test_v3_plan_matches_jax(n_poses, target):
     jps = P.PartitionedSolver(jax_system(n_poses), target=target)
     jps.symbolic()
-    ps = PartitionedSolver(port_system(n_poses), target=target)
+    ps = PartitionedSolver(port_system(n_poses), target=target, device="cpu")
     ps.symbolic()
     for k in P.V3Plan._fields:
         a, b = getattr(ps.plan, k), getattr(jps.plan, k)
@@ -63,9 +63,9 @@ def test_v3_plan_matches_jax(n_poses, target):
 @pytest.mark.parametrize("n_poses,target", [(120, 16), (200, 32)])
 def test_v3_exact_matches_dense_oracle(n_poses, target):
     system = port_system(n_poses)
-    graph = system.snapshot()
+    graph = system.snapshot("cpu")
     dx_ref = _dense_dx(graph)
-    ps = PartitionedSolver(system, target=target, mixed_precision=False)
+    ps = PartitionedSolver(system, target=target, mixed_precision=False, device="cpu")
     new_states, dx_norm, _ = ps.gn_step(graph)
     ref_states = assembly.apply_update(graph, dx_ref)
     for t, s in new_states.items():
@@ -115,8 +115,8 @@ def test_small_inv_and_cyclic_reduction_match_jax():
 
 def test_v3_spmv_matches_dense():
     system = port_system(150)
-    graph = system.snapshot()
-    ps = PartitionedSolver(system, target=32)
+    graph = system.snapshot("cpu")
+    ps = PartitionedSolver(system, target=32, device="cpu")
     ps.symbolic()
     p = ps.plan
     vals = block_assembly.assemble_blocks_sorted(graph, ps.block_plan)[0].numpy()
@@ -133,9 +133,9 @@ def test_v3_spmv_matches_dense():
 
 def test_v3_mixed_residual_small():
     system = port_system(200)
-    graph = system.snapshot()
+    graph = system.snapshot("cpu")
     H, g, _ = assembly.assemble_dense(graph)
-    ps = PartitionedSolver(system, target=32, mixed_precision=True, refine_iters=2)
+    ps = PartitionedSolver(system, target=32, mixed_precision=True, refine_iters=2, device="cpu")
     ps.symbolic()
     vals, rhs, _ = block_assembly.assemble_blocks_sorted(graph, ps.block_plan)
     x = _v3_solve_refined(ps.plan, vals, -rhs, 2, 1e-6, True)
@@ -155,8 +155,8 @@ def test_v3_mixed_chain_matches_jax(monkeypatch):
     assert jps.plan.ch_ok == 1
     chi2_j = float(jps.optimize_fused(jsystem.snapshot(), n_iters=5)[3])
     system = port_system(200)
-    ps = PartitionedSolver(system, target=32, mixed_precision=True, refine_iters=0)
-    chi2 = float(ps.optimize_fused(system.snapshot(), n_iters=5)[3])
+    ps = PartitionedSolver(system, target=32, mixed_precision=True, refine_iters=0, device="cpu")
+    chi2 = float(ps.optimize_fused(system.snapshot("cpu"), n_iters=5)[3])
     assert abs(chi2 - chi2_j) <= 1e-5 * chi2_j
 
 
@@ -164,8 +164,8 @@ def test_v3_mixed_chi2_trajectory_tracks_f64():
     system = port_system(200)
 
     def run(mixed):
-        graph = system.snapshot()
-        ps = PartitionedSolver(system, target=32, mixed_precision=mixed, refine_iters=2)
+        graph = system.snapshot("cpu")
+        ps = PartitionedSolver(system, target=32, mixed_precision=mixed, refine_iters=2, device="cpu")
         chis = []
         for _ in range(5):
             states, _, chi2 = ps.gn_step(graph)
@@ -182,8 +182,8 @@ def test_v3_mixed_chi2_trajectory_tracks_f64():
 
 def test_v3_chain_mode_matches_dense_frames():
     system = port_system(400, seed=2)
-    graph = system.snapshot()
-    ps = PartitionedSolver(system, target=64, mixed_precision=True, refine_iters=1)
+    graph = system.snapshot("cpu")
+    ps = PartitionedSolver(system, target=64, mixed_precision=True, refine_iters=1, device="cpu")
     ps.symbolic()
     assert ps.plan.ch_ok == 1
     vals, rhs, _ = block_assembly.assemble_blocks_sorted(graph, ps.block_plan, hessian_f32=True)
@@ -197,8 +197,8 @@ def test_v3_chain_mode_matches_dense_frames():
 
 def test_v3_fused_matches_stepwise():
     system = port_system(150)
-    graph = system.snapshot()
-    ps = PartitionedSolver(system, target=32, mixed_precision=False)
+    graph = system.snapshot("cpu")
+    ps = PartitionedSolver(system, target=32, mixed_precision=False, device="cpu")
     g = graph
     for _ in range(3):
         states, _, _ = ps.gn_step(g)
@@ -206,6 +206,26 @@ def test_v3_fused_matches_stepwise():
     chi_step = float(assembly.graph_chi2(g))
     _, _, _, chi_fused = ps.optimize_fused(graph, n_iters=3)
     assert abs(float(chi_fused) - chi_step) < 1e-6 * (1 + chi_step)
+
+
+@pytest.mark.parametrize("entry", ["solver", "cli"])
+def test_default_device_is_the_card(entry):
+    """Without ``device="cpu"`` the port runs on the card; with no card it
+    raises (at ``symbolic()``, or in the CLI) instead of running on the CPU."""
+    if entry == "solver":
+        ps = PartitionedSolver(port_system(60), target=16)
+        assert ps.device.type == "cuda"
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                ps.symbolic()
+            assert ps.plan is None
+        return
+    if torch.cuda.is_available():
+        return
+    out = subprocess.run([sys.executable, "-m", "slampp_tpu_torch.apps.manhattan", "60"],
+                         capture_output=True, text=True, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and not out.stdout
 
 
 def test_port_import_leaves_jax_out():

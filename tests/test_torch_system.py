@@ -28,7 +28,7 @@ def test_make_manhattan_text_is_identical():
 
 def test_snapshot_equals_jax():
     jg = jax_system(120).snapshot()
-    g = port_system(120).snapshot()
+    g = port_system(120).snapshot("cpu")
     assert (g.state_dim, g.unary_offset, g.unary_dim, g.unary_information) == (
         jg.state_dim, jg.unary_offset, jg.unary_dim, jg.unary_information)
     assert g.states.keys() == jg.states.keys() and g.edges.keys() == jg.edges.keys()
@@ -45,7 +45,7 @@ def test_snapshot_equals_jax():
 
 def test_chi2_dense_system_and_update_match_jax():
     jg = jax_system(120).snapshot()
-    g = port_system(120).snapshot()
+    g = port_system(120).snapshot("cpu")
     assert abs(float(assembly.graph_chi2(g)) - float(jax_asm.graph_chi2(jg))) < 1e-10
     H, gv, chi2 = assembly.assemble_dense(g)
     Hj, gj, chi2_j = jax_asm.assemble_dense(jg)
