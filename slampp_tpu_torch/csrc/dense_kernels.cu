@@ -123,6 +123,28 @@ constexpr int kTrsmThreads = kNB * kTrsmCols;        // one (row, column) of a g
 constexpr int kLdd = kNB + 1;                        // inverted diagonal blocks, padded
 constexpr unsigned kFull = 0xffffffffu;
 
+// Phase timestamps of chol_kernel for slampp_tpu_torch/apps/chol_times.py,
+// compiled in only with -DSLAMPP_CHOL_PHASES: thread 0 of CTA 0 writes
+// %globaltimer to mark i (0: entry, 1: matrix loaded; panel p: 2 + 3p after
+// the diagonal block, 3 + 3p after the panel, 4 + 3p after the trailing
+// update; 2 + 3P: end).  slampp_chol_marks copies them out.
+#ifdef SLAMPP_CHOL_PHASES
+constexpr int kMaxMarks = 3 * 800 + 3;
+__device__ unsigned long long g_chol_marks[kMaxMarks];
+#define CHOL_MARK(i)                                                                \
+  do {                                                                              \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (i) < kMaxMarks) {                   \
+      unsigned long long t_;                                                        \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                        \
+      g_chol_marks[i] = t_;                                                         \
+    }                                                                               \
+  } while (0)
+#else
+#define CHOL_MARK(i) \
+  do {               \
+  } while (0)
+#endif
+
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
@@ -145,6 +167,7 @@ __global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int M,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
+  CHOL_MARK(0);
 
   // lower triangle of A into the output, upper triangle zeroed
   for (int idx = tid; idx < M * M; idx += blockDim.x) {
@@ -153,6 +176,7 @@ __global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int M,
     l[idx] = (k <= i) ? a[idx] : T(0);
   }
   __syncthreads();
+  CHOL_MARK(1);
 
   for (int j0 = 0; j0 < M; j0 += nb) {
     const int w = min(nb, M - j0);  // this panel's width
@@ -183,6 +207,7 @@ __global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int M,
         for (int c = 0; c <= r; ++c) l[static_cast<size_t>(j0 + r) * M + j0 + c] = sD[r * ldd + c];
     }
     __syncthreads();
+    CHOL_MARK(2 + 3 * (j0 / nb));
     // 2. the panel below: row i solves x Ld^T = a (one thread per row),
     //    into the output and into shared memory for the trailing update
     for (int i = j1 + tid; i < M; i += blockDim.x) {
@@ -207,6 +232,7 @@ __global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int M,
       }
     }
     __syncthreads();
+    CHOL_MARK(3 + 3 * (j0 / nb));
     // 3. trailing update of the lower triangle: one warp per row, lanes
     //    along the row (coalesced read-modify-write)
     for (int i = j1 + warp; i < M; i += nwarps) {
@@ -220,7 +246,9 @@ __global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int M,
       }
     }
     __syncthreads();
+    CHOL_MARK(4 + 3 * (j0 / nb));
   }
+  CHOL_MARK(2 + 3 * ((M + nb - 1) / nb));
 }
 
 // ---------------------------------------------------------------------------
@@ -815,6 +843,12 @@ int slampp_trsm_bwd_f32(const void* L, const void* B, void* X, int K, int M, int
 int slampp_trsm_bwd_f64(const void* L, const void* B, void* X, int K, int M, int S, void* stream) {
   return launch_trsm<double, true>(L, B, X, K, M, S, stream);
 }
+#ifdef SLAMPP_CHOL_PHASES
+int slampp_chol_marks(unsigned long long* host, int n) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, g_chol_marks, sizeof(unsigned long long) * imin(n, kMaxMarks)));
+}
+#endif
 const char* slampp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
