@@ -14,7 +14,7 @@ For each shape (the main path's, the dense frames' and the exact mode's):
   SPD input (a yardstick only: the port never calls it);
 * ``phases_us``: from a build with ``-DSLAMPP_CHOL_PHASES``, the
   ``%globaltimer`` marks of CTA 0 of one launch summed by phase: load,
-  diagonal block, panel, trailing update, write-back.
+  diagonal block (factor, inverse), panel, trailing update, write-back.
 
 Prints one JSON object per shape; ``--out`` also writes the per-panel marks.
 """
@@ -73,26 +73,25 @@ def _phases(lib: ctypes.CDLL, A: torch.Tensor):
     M = A.shape[1]
     _chol(lib)(A)
     torch.cuda.synchronize()
-    n = 3 * 800 + 3
+    n = 4 * 800 + 3
     marks = (ctypes.c_ulonglong * n)()
     lib.slampp_chol_marks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     if lib.slampp_chol_marks(marks, n):
         raise RuntimeError("reading the marks failed")
-    P = (M + 31) // 32  # 32-wide panels at every shape of SHAPES
+    P = (M + 31) // 32  # 32-wide panels
     t = (np.array(marks[:], dtype=np.int64) - marks[0]) / 1000.0
-    prev = t[1]
-    diag = panel = trail = 0.0
+    names = ("diag", "inverse", "panel", "trailing")
+    sums = dict.fromkeys(names, 0.0)
     per_panel = []
+    prev = t[1]
     for p in range(P):
-        d, q, u = t[2 + 3 * p], t[3 + 3 * p], t[4 + 3 * p]
-        diag += d - prev
-        panel += q - d
-        trail += u - q
-        per_panel.append([d - prev, q - d, u - q])
-        prev = u
-    return ({"load": t[1], "diag": diag, "panel": panel, "trailing": trail,
-             "writeback": t[2 + 3 * P] - prev, "total": t[2 + 3 * P], "panels": P},
-            per_panel)
+        steps = np.diff(np.concatenate([[prev], t[2 + 4 * p: 6 + 4 * p]]))
+        for k, v in zip(names, steps):
+            sums[k] += float(v)
+        per_panel.append([float(v) for v in steps])
+        prev = t[5 + 4 * p]
+    return ({"load": float(t[1]), **sums, "writeback": float(t[2 + 4 * P] - prev),
+             "total": float(t[2 + 4 * P]), "panels": P}, per_panel)
 
 
 def main() -> int:

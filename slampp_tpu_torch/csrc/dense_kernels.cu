@@ -125,11 +125,12 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Phase timestamps of chol_kernel for slampp_tpu_torch/apps/chol_times.py,
 // compiled in only with -DSLAMPP_CHOL_PHASES: thread 0 of CTA 0 writes
-// %globaltimer to mark i (0: entry, 1: matrix loaded; panel p: 2 + 3p after
-// the diagonal block, 3 + 3p after the panel, 4 + 3p after the trailing
-// update; 2 + 3P: end).  slampp_chol_marks copies them out.
+// %globaltimer to mark i (0: entry, 1: matrix loaded; panel p: 2 + 4p after
+// the diagonal block's factor, 3 + 4p after its inverse, 4 + 4p after the
+// panel, 5 + 4p after the trailing update; 2 + 4P: end).  slampp_chol_marks
+// copies them out.
 #ifdef SLAMPP_CHOL_PHASES
-constexpr int kMaxMarks = 3 * 800 + 3;
+constexpr int kMaxMarks = 4 * 800 + 3;
 __device__ unsigned long long g_chol_marks[kMaxMarks];
 #define CHOL_MARK(i)                                                                \
   do {                                                                              \
@@ -147,109 +148,6 @@ __device__ unsigned long long g_chol_marks[kMaxMarks];
 
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
-
-// Right-looking blocked Cholesky of one (M, M) matrix per CTA, panel width
-// nb (32, or 16 / 8 when a 32-wide panel of a large M does not fit in shared
-// memory).  Dynamic shared memory: the diagonal block (kNB x (kNB+1)) and
-// the panel below it ((M - nb) x (nb+1)); the +1 pads away bank conflicts.
-template <typename T>
-__global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int M,
-                            int nb, T clamp) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sD = reinterpret_cast<T*>(smem_raw);  // [kNB][kNB + 1]
-  T* sP = sD + kNB * (kNB + 1);            // [M - nb][nb + 1]
-  const int ldd = kNB + 1;
-  const int ldp = nb + 1;
-  const size_t base = static_cast<size_t>(blockIdx.x) * M * M;
-  const T* a = A + base;
-  T* l = L + base;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  CHOL_MARK(0);
-
-  // lower triangle of A into the output, upper triangle zeroed
-  for (int idx = tid; idx < M * M; idx += blockDim.x) {
-    const int i = idx / M;
-    const int k = idx - i * M;
-    l[idx] = (k <= i) ? a[idx] : T(0);
-  }
-  __syncthreads();
-  CHOL_MARK(1);
-
-  for (int j0 = 0; j0 < M; j0 += nb) {
-    const int w = min(nb, M - j0);  // this panel's width
-    const int j1 = j0 + w;
-    // 1. the fully updated diagonal block, factored by warp 0
-    for (int idx = tid; idx < w * w; idx += blockDim.x) {
-      const int r = idx / w;
-      const int c = idx - r * w;
-      sD[r * ldd + c] = l[static_cast<size_t>(j0 + r) * M + j0 + c];
-    }
-    __syncthreads();
-    if (warp == 0) {
-      for (int j = 0; j < w; ++j) {
-        T d = sD[j * ldd + j];
-        d = (d > clamp) ? d : T(1e20);
-        const T ljj = sqrt_t(d);
-        __syncwarp();
-        if (lane == j) sD[j * ldd + j] = ljj;
-        if (lane > j && lane < w) sD[lane * ldd + j] /= ljj;
-        __syncwarp();
-        if (lane > j && lane < w) {
-          const T lij = sD[lane * ldd + j];
-          for (int k = j + 1; k <= lane; ++k) sD[lane * ldd + k] -= lij * sD[k * ldd + j];
-        }
-        __syncwarp();
-      }
-      for (int r = lane; r < w; r += 32)
-        for (int c = 0; c <= r; ++c) l[static_cast<size_t>(j0 + r) * M + j0 + c] = sD[r * ldd + c];
-    }
-    __syncthreads();
-    CHOL_MARK(2 + 3 * (j0 / nb));
-    // 2. the panel below: row i solves x Ld^T = a (one thread per row),
-    //    into the output and into shared memory for the trailing update
-    for (int i = j1 + tid; i < M; i += blockDim.x) {
-      T* row = l + static_cast<size_t>(i) * M + j0;
-      T x[kNB];
-#pragma unroll
-      for (int t = 0; t < kNB; ++t) {
-        if (t < w) {
-          T v = row[t];
-#pragma unroll
-          for (int k = 0; k < t; ++k) v -= x[k] * sD[t * ldd + k];
-          x[t] = v / sD[t * ldd + t];
-        }
-      }
-      T* p = sP + (i - j1) * ldp;
-#pragma unroll
-      for (int t = 0; t < kNB; ++t) {
-        if (t < w) {
-          row[t] = x[t];
-          p[t] = x[t];
-        }
-      }
-    }
-    __syncthreads();
-    CHOL_MARK(3 + 3 * (j0 / nb));
-    // 3. trailing update of the lower triangle: one warp per row, lanes
-    //    along the row (coalesced read-modify-write)
-    for (int i = j1 + warp; i < M; i += nwarps) {
-      const T* pi = sP + (i - j1) * ldp;
-      T* row = l + static_cast<size_t>(i) * M;
-      for (int k = j1 + lane; k <= i; k += 32) {
-        const T* pk = sP + (k - j1) * ldp;
-        T acc = row[k];
-        for (int t = 0; t < w; ++t) acc -= pi[t] * pk[t];
-        row[k] = acc;
-      }
-    }
-    __syncthreads();
-    CHOL_MARK(4 + 3 * (j0 / nb));
-  }
-  CHOL_MARK(2 + 3 * ((M + nb - 1) / nb));
-}
 
 // ---------------------------------------------------------------------------
 // triangular solves: cluster-resident wavefront
@@ -400,7 +298,7 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned by
 }
 
 // Inverse of the lower triangular wp x wp diagonal block d (leading
-// dimension ldd) into o ([kNB][kLdd]): D^-1 (fwd) or D^-T (bwd), zero outside
+// dimension ldd) into o ([kNB][kLdo]): D^-1 (fwd) or D^-T (bwd), zero outside
 // the block's triangle, identity beyond wp.  Column j of D^-1 is the
 // substitution on e_j (lane = row), with the pivots' reciprocals; warp w
 // advances the four columns w, w + 8, w + 16, w + 24 together from step w
@@ -408,7 +306,7 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned by
 // branch guards the shuffles).  d is shared or global memory: the helpers
 // below are inlined where the kernel knows which, so that a resident slab is
 // read with shared-memory loads and not generic ones.
-template <typename T, bool kBwd>
+template <typename T, bool kBwd, int kLdo = kLdd>
 __device__ __forceinline__ void invert_diag(const T* d, int ldd, int wp, T* o) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -429,8 +327,8 @@ __device__ __forceinline__ void invert_diag(const T* d, int ldd, int wp, T* o) {
 #pragma unroll
   for (int u = 0; u < kNB / 8; ++u) {
     const int j = warp + 8 * u;
-    if (kBwd) o[j * kLdd + lane] = v[u];
-    else o[lane * kLdd + j] = v[u];
+    if (kBwd) o[j * kLdo + lane] = v[u];
+    else o[lane * kLdo + j] = v[u];
   }
 }
 
@@ -659,9 +557,410 @@ __global__ void __launch_bounds__(kTrsmThreads)
   cluster.sync();
 }
 
+// ---------------------------------------------------------------------------
+// Cholesky: one CTA per matrix, register-tiled trailing update
+// ---------------------------------------------------------------------------
+
+// The largest M the Cholesky takes: what the first kernel's shared-memory
+// panel buffer allowed on a 227 KB opt-in.  The plan below would fit more,
+// but the callers' contract (and the tests at the limit) keep this one.
 template <typename T>
-size_t chol_smem(int M, int nb) {
-  return (static_cast<size_t>(kNB) * (kNB + 1) + static_cast<size_t>(M) * (nb + 1)) * sizeof(T);
+constexpr int kCholMaxM = sizeof(T) == 4 ? 6336 : 3104;
+
+// Row stride of 32-wide blocks whose rows are read as 16-byte vectors by
+// one thread per row: 32 + 16 bytes, so that a warp's vector loads of 32
+// consecutive rows spread over all banks.
+template <typename T>
+constexpr int kLdv = kNB + static_cast<int>(16 / sizeof(T));
+
+template <typename T>
+struct Vec16;  // 16 bytes of T: the width of one vector load
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+
+// Packed lower triangle of the resident form: block row I (rows 32I ..
+// 32I + 31) keeps columns [0, 32(I + 1)) of each row, with a row stride of
+// 32(I + 1) + 16 bytes (rows stay 16-byte aligned for the bulk copies, and
+// the pad spreads a tile's rows over the banks).  Offset of row i, in T.
+template <typename T>
+__host__ __device__ __forceinline__ size_t packed_row(int i) {
+  const size_t I = i >> 5, r = i & 31, pad = 16 / sizeof(T);
+  return 32 * (16 * I * (I + 1) + pad * I) + r * (32 * (I + 1) + pad);
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ int packed_ld(int I) {
+  return 32 * (I + 1) + static_cast<int>(16 / sizeof(T));
+}
+
+// Shared memory of one CTA: an mbarrier (16 bytes), the inverted diagonal
+// block ([kNB][kLdv]), the diagonal block itself ([kNB][kLdd], streaming
+// form only), kc rows of W^T (the panel below the diagonal, transposed:
+// [kc][32(P - 1)]), rs staged panel rows ([rs][kLdv], streaming form only)
+// and the packed triangle (resident form only).  Bytes.
+template <typename T>
+size_t chol_smem(int M, bool resident, int kc, int rs) {
+  const size_t P = (M + kNB - 1) / kNB;
+  size_t b = 16 + sizeof(T) * (kNB * kLdv<T> + (resident ? 0 : kNB * kLdd) +
+                               static_cast<size_t>(kc) * (P - 1) * kNB +
+                               static_cast<size_t>(rs) * kLdv<T>);
+  if (resident) b += sizeof(T) * packed_row<T>(M);
+  return b;
+}
+
+// Row i of the factor being formed: the packed triangle in shared memory
+// (resident) or the output in global memory (streaming).
+template <typename T, bool kRes>
+__device__ __forceinline__ T* chol_row(T* base, int M, int i) {
+  return kRes ? base + packed_row<T>(i) : base + static_cast<size_t>(i) * M;
+}
+
+__device__ __forceinline__ void unpack(const float4& q, float* v) {
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void unpack(const double2& q, double* v) { v[0] = q.x, v[1] = q.y; }
+__device__ __forceinline__ float4 pack(const float* v) { return make_float4(v[0], v[1], v[2], v[3]); }
+__device__ __forceinline__ double2 pack(const double* v) { return make_double2(v[0], v[1]); }
+
+// n consecutive T (n a multiple of the vector width, p 16-byte aligned)
+// through 16-byte vectors, to and from registers
+template <typename T, int n>
+__device__ __forceinline__ void load_vec(const T* p, T* v) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = 16 / sizeof(T);
+#pragma unroll
+  for (int u = 0; u < n / kV; ++u) unpack(reinterpret_cast<const V*>(p)[u], v + u * kV);
+}
+
+template <typename T, int n>
+__device__ __forceinline__ void store_vec(T* p, const T* v) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = 16 / sizeof(T);
+#pragma unroll
+  for (int u = 0; u < n / kV; ++u) reinterpret_cast<V*>(p)[u] = pack(v + u * kV);
+}
+
+// 1 / sqrt(d) without a branch to a slow path (MUFU.RSQ in f32, 2 ulp; the
+// library's rsqrt in f64, 1 ulp): the pivot chain stays one basic block
+__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+
+// The pivot of a column: d <= clamp (or NaN) is frozen at 1e20, as
+// _chol_value (dense_kernels.py:69-112) does.  Returns L_jj; *inv = 1 / L_jj.
+template <typename T>
+__device__ __forceinline__ T pivot(T d, T clamp, T* inv) {
+  d = (d > clamp) ? d : T(1e20);
+  *inv = rsqrt_t(d);
+  return d * *inv;
+}
+
+// Factors the w x w diagonal block at rows/columns [j0, j0 + w) of src into
+// dst (warp 0; lane r holds row r in registers, rows beyond w are identity)
+// and into dcopy ([kNB][kLdd]) when given.  Right-looking, one column per
+// step, its multipliers scaled by 1 / L_jj; the column is broadcast by
+// shuffles.  The next column's pivot is taken as soon as its diagonal entry
+// is updated, so that its square root overlaps the rest of the step.
+template <typename T, bool kRes>
+__device__ __forceinline__ void chol_diag(const T* src, T* dst, T* dcopy, int M, int j0, int w,
+                                          T clamp) {
+  const int lane = threadIdx.x & 31;
+  T d[kNB];
+  if (lane < w) {
+    const T* row = chol_row<T, kRes>(const_cast<T*>(src), M, j0 + lane) + j0;
+#pragma unroll
+    for (int c = 0; c < kNB; c += 8)
+      if (c < w) load_vec<T, 8>(row + c, d + c);
+  }
+#pragma unroll
+  for (int c = 0; c < kNB; ++c) {
+    if (lane >= w) d[c] = (c == lane) ? T(1) : T(0);
+    else if (c > lane) d[c] = T(0);
+  }
+  T inv;
+  T ljj = pivot(__shfl_sync(kFull, d[0], 0), clamp, &inv);
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) {
+    const T lrj = lane == j ? ljj : (lane > j ? d[j] * inv : T(0));
+    d[j] = lrj;
+    if (j + 1 < kNB) {
+      d[j + 1] -= lrj * __shfl_sync(kFull, lrj, j + 1);
+      ljj = pivot(__shfl_sync(kFull, d[j + 1], j + 1), clamp, &inv);
+    }
+#pragma unroll
+    for (int k = j + 2; k < kNB; ++k) d[k] -= lrj * __shfl_sync(kFull, lrj, k);
+  }
+#pragma unroll
+  for (int c = 0; c < kNB; ++c)
+    if (c > lane) d[c] = T(0);
+  if (lane < w) {
+    T* row = chol_row<T, kRes>(dst, M, j0 + lane) + j0;
+#pragma unroll
+    for (int c = 0; c < kNB; c += 8)
+      if (c < w) store_vec<T, 8>(row + c, d + c);
+  }
+  if (dcopy) {
+#pragma unroll
+    for (int c = 0; c < kNB; ++c) dcopy[lane * kLdd + c] = d[c];
+  }
+}
+
+// One row of the panel, W = a L_d^-T (a: the row's 32 entries of the
+// block column, in place; null for a padding row, whose W is 0): held in
+// registers and overwritten from the last column down (W[c] needs a[t],
+// t <= c), with the rows of dinv ([kNB][kLdv], L_d^-1) read as broadcast
+// 16-byte vectors.  Also into wt[t * ldw] (W^T) when wt is given.
+template <typename T>
+__device__ __forceinline__ void panel_row(T* a, const T* dinv, T* wt, int ldw) {
+  constexpr int kV = 16 / sizeof(T);
+  T x[kNB];
+  if (a) {
+    load_vec<T, kNB>(a, x);
+#pragma unroll
+    for (int c = kNB - 1; c >= 0; --c) {
+      T y = T(0);
+#pragma unroll
+      for (int t0 = 0; t0 <= c; t0 += kV) {
+        T q[kV];
+        load_vec<T, kV>(dinv + c * kLdv<T> + t0, q);
+#pragma unroll
+        for (int e = 0; e < kV; ++e)
+          if (t0 + e <= c) y += x[t0 + e] * q[e];
+      }
+      x[c] = y;
+    }
+    store_vec<T, kNB>(a, x);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kNB; ++c) x[c] = T(0);
+  }
+  if (wt) {
+#pragma unroll
+    for (int t = 0; t < kNB; ++t) wt[t * ldw] = x[t];
+  }
+}
+
+// The panel below the diagonal block, rows [j1, Mp) (rows from M on are
+// padding, 0 in W^T).  Resident: one thread per row, in place in the packed
+// triangle.  Streaming: rs rows at a time are staged in S ([rs][kLdv]) with
+// coalesced 16-byte copies from and back to global memory, so that the
+// thread of a row reads it from shared memory.
+template <typename T, bool kRes>
+__device__ __forceinline__ void chol_panel(const T* src, T* dst, T* S, int rs, const T* dinv,
+                                           T* wt, int ldw, int M, int Mp, int j0) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = 16 / sizeof(T);
+  constexpr int kPerRow = kNB / kV;  // vectors in a row's 32 entries
+  const int tid = threadIdx.x;
+  const int j1 = j0 + kNB;
+  if constexpr (kRes) {
+    for (int i = j1 + tid; i < Mp; i += kCholThreads)
+      panel_row<T>(i < M ? dst + packed_row<T>(i) + j0 : nullptr, dinv, wt ? wt + i - j1 : nullptr,
+                   ldw);
+    return;
+  }
+  for (int r0 = j1; r0 < Mp; r0 += rs) {
+    const int n = imin(rs, Mp - r0);
+    if (r0 > j1) __syncthreads();  // the copy-out of the chunk before has read S
+    for (int idx = tid; idx < n * kPerRow; idx += kCholThreads) {
+      const int r = idx / kPerRow, q = idx - r * kPerRow;
+      reinterpret_cast<V*>(S + r * kLdv<T>)[q] =
+          r0 + r < M ? reinterpret_cast<const V*>(src + static_cast<size_t>(r0 + r) * M + j0)[q]
+                     : V{};
+    }
+    __syncthreads();
+    if (tid < n) panel_row<T>(S + tid * kLdv<T>, dinv, wt ? wt + r0 + tid - j1 : nullptr, ldw);
+    __syncthreads();
+    for (int idx = tid; idx < n * kPerRow; idx += kCholThreads) {
+      const int r = idx / kPerRow, q = idx - r * kPerRow;
+      if (r0 + r < M)
+        reinterpret_cast<V*>(dst + static_cast<size_t>(r0 + r) * M + j0)[q] =
+            reinterpret_cast<const V*>(S + r * kLdv<T>)[q];
+    }
+  }
+}
+
+// Trailing update of the lower triangle right of panel p, depth `depth`
+// (the kc columns of W^T in wt): each warp takes the 32 x 32 tiles (I, J),
+// p < J <= I, in turn; lane (ry, cx) keeps rows 4ry .. 4ry + 3 and columns
+// 8cx .. 8cx + 7 of the tile in registers, reads the tile once, and at each
+// depth step loads its 4 + 8 entries of W^T as 16-byte vectors for 32 FMAs.
+// The depth loop is unrolled by 2 only: a deeper unroll hoists the W^T
+// loads of many steps into registers and spills.
+template <typename T, bool kRes>
+__device__ __forceinline__ void chol_trailing(const T* src, T* dst, const T* wt, int ldw, int depth,
+                                              int M, int P, int p) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ry = lane & 7, cx = lane >> 3;
+  const int j1 = (p + 1) * kNB;
+  int I = p + 1, J = p + 1 + warp;  // tile `warp` of the row-major order
+  while (J > I && I < P) J -= I - p, ++I;
+  for (; I < P;) {
+    const int r0 = I * kNB + 4 * ry;
+    const int c0 = J * kNB + 8 * cx;
+    T acc[4][8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (r0 + a < M && c0 < M) {
+        load_vec<T, 8>(chol_row<T, kRes>(const_cast<T*>(src), M, r0 + a) + c0, acc[a]);
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; ++b) acc[a][b] = T(0);
+      }
+    }
+    const T* wr = wt + r0 - j1;
+    const T* wc = wt + c0 - j1;
+#pragma unroll 2
+    for (int t = 0; t < depth; ++t) {
+      T x[4], y[8];
+      load_vec<T, 4>(wr + t * ldw, x);
+      load_vec<T, 8>(wc + t * ldw, y);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 8; ++b) acc[a][b] -= x[a] * y[b];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (r0 + a >= M || c0 >= M) continue;
+      T* row = chol_row<T, kRes>(dst, M, r0 + a) + c0;
+      if (I != J || c0 + 7 <= r0 + a) {
+        store_vec<T, 8>(row, acc[a]);
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          if (c0 + b <= r0 + a) row[b] = acc[a][b];
+      }
+    }
+    J += kCholThreads / 32;
+    while (J > I && I < P) J -= I - p, ++I;
+  }
+}
+
+// Right-looking blocked Cholesky of one (M, M) matrix per CTA in 32-wide
+// panels; see the note at the top of the file.  A and L are not
+// __restrict__: with it the compiler read the factor, which the kernel
+// writes, through the non-coherent read-only path.  kRes: the packed lower
+// triangle is resident in shared memory (loaded once by bulk copies,
+// written back once); else the factor is formed in place in the output
+// (L2-resident).  kc: the depth of W^T staged at once (32, or 16 / 8 where
+// 32 rows of W^T do not fit beside the rest); rs: the panel rows staged at
+// once (streaming only).
+template <typename T, bool kRes>
+__global__ void __launch_bounds__(kCholThreads)
+    chol_kernel(const T* A, T* L, int M, int kc, int rs, T clamp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int P = (M + kNB - 1) / kNB;
+  const int Mp = P * kNB;
+  const int ldw = Mp - kNB;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  T* sDi = reinterpret_cast<T*>(smem + 16);     // [kNB][kLdv]: L_d^-1
+  T* sD = sDi + kNB * kLdv<T>;                  // [kNB][kLdd]: L_d (streaming)
+  T* sWt = sD + (kRes ? 0 : kNB * kLdd);        // [kc][ldw]: W^T
+  T* sS = sWt + static_cast<size_t>(kc) * ldw;  // [rs][kLdv]: staged panel rows (streaming)
+  T* sL = sS + static_cast<size_t>(rs) * kLdv<T>;  // packed triangle (resident)
+  const size_t base = static_cast<size_t>(blockIdx.x) * M * M;
+  const T* a = A + base;
+  T* l = L + base;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int kWarps = kCholThreads / 32;
+  constexpr int kV = 16 / sizeof(T);
+  CHOL_MARK(0);
+
+  if constexpr (kRes) {
+    // the lower triangle (each row up to the end of its diagonal block) in
+    // one bulk copy per row, on one barrier
+    if (tid == 0) {
+      mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (warp == 0) {
+      if (lane == 0) {
+        const unsigned full = M / kNB;  // block rows of 32 rows
+        mbar_expect_tx(bar, static_cast<unsigned>(
+            (512u * full * (full + 1) + (M - full * kNB) * static_cast<unsigned>(M)) * sizeof(T)));
+      }
+      __syncwarp();
+      for (int i = lane; i < M; i += 32)
+        bulk_g2s(sL + packed_row<T>(i), a + static_cast<size_t>(i) * M,
+                 static_cast<unsigned>(imin(kNB * ((i >> 5) + 1), M) * sizeof(T)), bar);
+    }
+    mbar_wait(bar);
+  } else {
+    // zeros right of each row's diagonal block; everything else is written
+    // by the panel steps (panel 0 reads A, later panels the output)
+    for (int i = warp; i < M; i += kWarps) {
+      T* row = l + static_cast<size_t>(i) * M;
+      for (int c = kNB * ((i >> 5) + 1) + lane * kV; c < M; c += 32 * kV)
+        *reinterpret_cast<typename Vec16<T>::type*>(row + c) = typename Vec16<T>::type{};
+    }
+  }
+  CHOL_MARK(1);
+
+  T* fac = kRes ? sL : l;
+  for (int p = 0; p < P; ++p) {
+    const int j0 = p * kNB;
+    const int w = imin(kNB, M - j0);
+    const T* src = kRes ? sL : (p == 0 ? a : l);
+    // 1. the diagonal block (warp 0), then its inverse (warps 0-7)
+    if (warp == 0) chol_diag<T, kRes>(src, fac, kRes ? nullptr : sD, M, j0, w, clamp);
+    __syncthreads();
+    CHOL_MARK(2 + 4 * p);
+    if (warp < 8) {
+      if constexpr (kRes)
+        invert_diag<T, false, kLdv<T>>(sL + packed_row<T>(j0) + j0, packed_ld<T>(p), w, sDi);
+      else
+        invert_diag<T, false, kLdv<T>>(sD, kLdd, w, sDi);
+    }
+    __syncthreads();
+    CHOL_MARK(3 + 4 * p);
+    // 2. the panel below it
+    chol_panel<T, kRes>(src, fac, sS, rs, sDi, kc == kNB ? sWt : nullptr, ldw, M, Mp, j0);
+    __syncthreads();
+    CHOL_MARK(4 + 4 * p);
+    // 3. the trailing update, kc columns of W^T at a time
+    if (p + 1 < P) {
+      const int j1 = j0 + kNB;
+      for (int t0 = 0; t0 < kNB; t0 += kc) {
+        if (kc < kNB) {
+          if (t0 > 0) __syncthreads();
+          const int nrows = Mp - j1;
+          for (int idx = tid; idx < kc * nrows; idx += kCholThreads) {
+            const int r = idx / kc, t = idx - r * kc;
+            sWt[t * ldw + r] = j1 + r < M ? l[static_cast<size_t>(j1 + r) * M + j0 + t0 + t] : T(0);
+          }
+          __syncthreads();
+        }
+        chol_trailing<T, kRes>(t0 == 0 ? src : fac, fac, sWt, ldw, kc, M, P, p);
+      }
+    }
+    __syncthreads();
+    CHOL_MARK(5 + 4 * p);
+  }
+
+  if constexpr (kRes) {
+    // L once: the packed rows, zeros above the diagonal
+    for (int i = warp; i < M; i += kWarps) {
+      const T* s = sL + packed_row<T>(i);
+      T* row = l + static_cast<size_t>(i) * M;
+      for (int c = lane * kV; c < M; c += 32 * kV) {
+        T v[kV];
+#pragma unroll
+        for (int e = 0; e < kV; ++e) v[e] = c + e <= i ? s[c + e] : T(0);
+        store_vec<T, kV>(row + c, v);
+      }
+    }
+  }
+  CHOL_MARK(2 + 4 * P);
 }
 
 int optin_smem(int* optin) {
@@ -672,20 +971,72 @@ int optin_smem(int* optin) {
   return static_cast<int>(err);
 }
 
+// The form of one (M, dtype) on a device: resident where the packed
+// triangle fits beside the rest; else streaming with the deepest W^T that
+// fits beside at least 32 staged panel rows, and as many staged rows
+// (multiples of 32, up to one per thread) as then fit.  smem 0: M beyond
+// the limit.
+struct CholLaunch {
+  bool resident;
+  int kc, rs;
+  size_t smem;
+};
+
+template <typename T>
+CholLaunch plan_chol(int M, size_t optin) {
+  if (M > kCholMaxM<T>) return {false, 0, 0, 0};
+  if (chol_smem<T>(M, true, kNB, 0) <= optin) return {true, kNB, 0, chol_smem<T>(M, true, kNB, 0)};
+  const int rows = (M + kNB - 1) / kNB * kNB - kNB;  // panel rows below the first block
+  for (int kc = kNB; kc >= 8; kc /= 2) {
+    int rs = imin(kCholThreads, rows);
+    while (rs > kNB && chol_smem<T>(M, false, kc, rs) > optin) rs -= kNB;
+    if (chol_smem<T>(M, false, kc, rs) <= optin) return {false, kc, rs, chol_smem<T>(M, false, kc, rs)};
+  }
+  return {false, 0, 0, 0};
+}
+
+template <typename T>
+using CholKernel = void (*)(const T*, T*, int, int, int, T);
+
 template <typename T>
 int launch_chol(const void* A, void* L, int K, int M, double clamp, void* stream) {
+  static std::mutex mu;
+  static std::map<std::array<int, 2>, CholLaunch> plans;
+  int dev = 0;
+  if (cudaError_t err = cudaGetDevice(&dev)) return static_cast<int>(err);
+  CholLaunch c;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const std::array<int, 2> key = {dev, M};
+    auto it = plans.find(key);
+    if (it == plans.end()) {
+      int optin = 0;
+      if (int err = optin_smem(&optin)) return err;
+      c = plan_chol<T>(M, static_cast<size_t>(optin));
+      if (!c.smem) return static_cast<int>(cudaErrorInvalidValue);
+      for (CholKernel<T> kernel : {chol_kernel<T, true>, chol_kernel<T, false>})
+        if (cudaError_t err =
+                cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin))
+          return static_cast<int>(err);
+      it = plans.emplace(key, c).first;
+    }
+    c = it->second;
+  }
+  const CholKernel<T> kernel = c.resident ? chol_kernel<T, true> : chol_kernel<T, false>;
+  kernel<<<K, kCholThreads, c.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<T*>(L), M, c.kc, c.rs, static_cast<T>(clamp));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The largest M of the resident form on the current device (0 if none).
+template <typename T>
+int resident_max_m(int* out) {
   int optin = 0;
   if (int err = optin_smem(&optin)) return err;
-  int nb = kNB;
-  while (nb > 8 && chol_smem<T>(M, nb) > static_cast<size_t>(optin)) nb /= 2;
-  const size_t smem = chol_smem<T>(M, nb);
-  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(chol_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chol_kernel<T><<<K, kCholThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), static_cast<T*>(L), M, nb, static_cast<T>(clamp));
-  return static_cast<int>(cudaGetLastError());
+  *out = 0;
+  for (int M = 8; M <= kCholMaxM<T>; M += 8)
+    if (plan_chol<T>(M, static_cast<size_t>(optin)).resident) *out = M;
+  return 0;
 }
 
 // The kernel of a plan.  A launch chooses G from kGroupChoices, and pulls
@@ -849,6 +1200,9 @@ int slampp_chol_marks(unsigned long long* host, int n) {
       cudaMemcpyFromSymbol(host, g_chol_marks, sizeof(unsigned long long) * imin(n, kMaxMarks)));
 }
 #endif
+int slampp_chol_resident_max(int f64, int* out) {
+  return f64 ? resident_max_m<double>(out) : resident_max_m<float>(out);
+}
 const char* slampp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

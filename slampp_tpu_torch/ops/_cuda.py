@@ -82,6 +82,8 @@ def load() -> ctypes.CDLL:
                     fn = getattr(lib, f"slampp_trsm_{kind}_{dt}")
                     fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
                     fn.restype = i32
+            lib.slampp_chol_resident_max.argtypes = [i32, ctypes.POINTER(i32)]
+            lib.slampp_chol_resident_max.restype = i32
             lib.slampp_error_string.argtypes = [i32]
             lib.slampp_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -153,6 +153,22 @@ def chol_batched(A: torch.Tensor, clamp: float = 1e-8) -> torch.Tensor:
     return out
 
 
+def chol_resident_max_m(dtype: torch.dtype, device="cuda") -> int:
+    """The largest M at which the Cholesky kernel keeps the matrix resident
+    in shared memory on ``device`` (a larger M streams it through the
+    output buffer), from the kernel's own plan."""
+    import ctypes
+
+    from slampp_tpu_torch.ops import _cuda
+
+    lib = _cuda.load()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        _cuda.check(lib, lib.slampp_chol_resident_max(int(dtype == torch.float64),
+                                                      ctypes.byref(out)), "chol_resident_max_m")
+    return out.value
+
+
 def _trsm(name: str, kind: str, L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     sfx = _cuda_args(name, L, B)
     K, M, _ = L.shape

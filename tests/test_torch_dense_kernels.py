@@ -83,51 +83,14 @@ def test_frozen_pivot_matches_jax(dtype, atol):
         assert np.abs(L[0, z + 1 :, z]).max() < 1e-6
 
 
-def _inv_lower(D):
-    """Inverse of (K, w, w) lower blocks as the TRSM kernel forms it: column
-    j is the substitution on e_j, one row at a time, multiplying by the
-    pivots' reciprocals."""
-    K, w, _ = D.shape
-    rcp = 1.0 / torch.diagonal(D, dim1=1, dim2=2)
-    cols = []
-    for j in range(w):
-        v = torch.zeros(K, w, dtype=D.dtype)
-        v[:, j] = 1.0
-        for r in range(j, w):
-            xr = v[:, r] * rcp[:, r]
-            v[:, r + 1 :] -= D[:, r + 1 :, r] * xr[:, None]
-            v[:, r] = xr
-        cols.append(v)
-    return torch.stack(cols, -1)
-
-
-def _wavefront_trsm(L, B, bwd):
-    """The TRSM kernel's arithmetic (csrc/dense_kernels.cu, trsm_kernel):
-    inverted 32x32 diagonal blocks, panels in wavefront order (down for
-    L^-1 B, up for L^-T B), each published x_p applied to the panels the
-    wavefront has not reached."""
-    M = L.shape[1]
-    nb = 32
-    sl = [slice(p, min(p + nb, M)) for p in range(0, M, nb)]
-    acc = [B[:, s].clone() for s in sl]
-    x = [None] * len(sl)
-    order = range(len(sl) - 1, -1, -1) if bwd else range(len(sl))
-    for step, p in enumerate(order):
-        Dinv = _inv_lower(L[:, sl[p], sl[p]])
-        x[p] = (Dinv.transpose(1, 2) if bwd else Dinv) @ acc[p]
-        for i in list(order)[step + 1 :]:
-            A = L[:, sl[p], sl[i]].transpose(1, 2) if bwd else L[:, sl[i], sl[p]]
-            acc[i] -= A @ x[p]
-    return torch.cat(x, 1)
-
-
 @pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("case", ["sep_1x488x8", "3x40x13", "frozen", "1x1096x8"])
 def test_wavefront_trsm_matches_jax(case, bwd):
-    """The TRSM kernel's explicit-inverse wavefront, written in plain torch,
-    and the port's trsm_lower_batched / trsm_lower_t_batched (their plain
-    path on a CPU tensor) against the JAX package's (lax triangular_solve on
-    the CPU): f64, 1e-10 relative."""
+    """The port's chol_batched and trsm_lower_batched / trsm_lower_t_batched
+    (their plain path on a CPU tensor) against the JAX package's (its lax
+    panel loop and triangular_solve on the CPU) on the same A and B: f64,
+    1e-10 relative (the Cholesky against the scale of its unfrozen entries;
+    a frozen pivot is 1e10 in both)."""
     jnp = pytest.importorskip("jax.numpy")
     from slampp_tpu.ops import dense_kernels as jdk
 
@@ -139,13 +102,16 @@ def test_wavefront_trsm_matches_jax(case, bwd):
                    "1x1096x8": (1, 1096, 8)}[case]
         A = _spd(rng, K, M)
     L = dk.chol_batched(torch.from_numpy(A), clamp=1e-8)
+    L_jax = np.asarray(jdk.chol_batched(jnp.asarray(A), clamp=1e-8))
+    scale = np.abs(L_jax[np.abs(L_jax) < 1e9]).max()
+    np.testing.assert_allclose(L.numpy(), L_jax, rtol=1e-10, atol=1e-10 * scale)
     B = torch.from_numpy(rng.normal(size=(A.shape[0], A.shape[1], S)))
     jfn = jdk.trsm_lower_t_batched if bwd else jdk.trsm_lower_batched
     ref = np.asarray(jfn(jnp.asarray(L.numpy()), jnp.asarray(B.numpy())))
     port = dk.trsm_lower_t_batched if bwd else dk.trsm_lower_batched
-    for X in (_wavefront_trsm(L, B, bwd).numpy(), port(L, B).numpy()):
-        assert np.isfinite(X).all()
-        assert np.abs(X - ref).max() / np.abs(ref).max() < 1e-10
+    X = port(L, B).numpy()
+    assert np.isfinite(X).all()
+    assert np.abs(X - ref).max() / np.abs(ref).max() < 1e-10
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -204,6 +170,83 @@ def test_cuda_frozen_pivot_matches_plain(cuda, dtype):
     torch.testing.assert_close(L, dk.chol_batched_plain(A, 1e-8), rtol=1e-5, atol=1e-5)
 
 
+def _check_chol(A, L):
+    """The Cholesky kernel against its plain version: f64 max |kernel -
+    plain| over max |plain| within 1e-10; f32 relative residual within 1e-4;
+    the upper triangle exactly zero."""
+    ref = dk.chol_batched_plain(A)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(L).all())
+    assert not bool(torch.triu(L, 1).any())
+    if A.dtype == torch.float64:
+        assert float((L - ref).abs().max() / ref.abs().max()) < 1e-10
+    else:
+        assert float((L @ L.transpose(1, 2) - A).abs().max() / A.abs().max()) < 1e-4
+
+
+# the first M on each side of the resident / streaming boundary (f32 288 /
+# 296, f64 192 / 200 on a 227 KB opt-in)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("side", [0, 8], ids=["resident", "streaming"])
+def test_cuda_chol_resident_boundary_matches_plain(cuda, dtype, side):
+    M = dk.chol_resident_max_m(dtype) + side
+    assert M >= 192  # the dense frames' part blocks are resident in both dtypes
+    A = torch.from_numpy(_spd(np.random.default_rng(M), 3, M)).to(cuda, dtype)
+    dk.reset_launches()
+    _check_chol(A, dk.chol_batched(A))
+    assert dk.launches["chol_batched"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_chol_frozen_pivot_resident_matches_plain(cuda, dtype):
+    """Frozen pivots in the resident form (M = 192, rows 5, 100, 191 zero):
+    L_jj = 1e10 on them, their columns ~0, the rest as the plain version."""
+    zero = (5, 100, 191)
+    A = torch.from_numpy(_frozen_case(np.random.default_rng(11), M=192, zero_rows=zero))
+    A = A.repeat(4, 1, 1).to(cuda, dtype)
+    L = dk.chol_batched(A, clamp=1e-8)
+    ref = dk.chol_batched_plain(A, 1e-8)
+    assert bool(torch.isfinite(L).all())
+    keep = [i for i in range(192) if i not in zero]
+    scale = float(ref[:, keep][:, :, keep].abs().max())
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    assert float((L - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert float((L[:, keep][:, :, keep] - ref[:, keep][:, :, keep]).abs().max()) <= tol * scale
+    for z in zero:
+        assert abs(float(L[0, z, z]) - 1e10) < 1e4
+        if z + 1 < 192:
+            assert float(L[:, z + 1:, z].abs().max()) < 1e-6
+
+
+def _device_spd(cuda, M):
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    G = torch.randn(1, M, M, device=cuda, dtype=torch.float64, generator=gen)
+    return G @ G.transpose(1, 2) / M + torch.eye(M, device=cuda, dtype=torch.float64)
+
+
+# the largest M per dtype (the plain version would take minutes there): by
+# relative residual against A; and M + 8 raises
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,M,tol", [(torch.float64, 3104, 1e-10),
+                                         (torch.float32, 6336, 1e-4)])
+def test_cuda_chol_largest_m_residual(cuda, dtype, M, tol):
+    A = _device_spd(cuda, M)
+    L = dk.chol_batched(A.to(dtype))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(L).all()) and not bool(torch.triu(L, 1).any())
+    L64 = L.double()
+    assert float((L64 @ L64.transpose(1, 2) - A).abs().max() / A.abs().max()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,M", [(torch.float64, 3112), (torch.float32, 6344)])
+def test_cuda_chol_beyond_largest_m_raises(cuda, dtype, M):
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        dk.chol_batched(torch.eye(M, device=cuda, dtype=dtype)[None])
+
+
 def _check_trsm(bwd, L, B):
     """A TRSM kernel against its plain version: f64 max |kernel - plain|
     over max |plain| within 1e-10; f32 relative residual within 1e-4."""
@@ -240,10 +283,7 @@ def test_cuda_trsm_match_plain(cuda, dtype, bwd, K, M, S):
 def _device_chol(cuda, M, dtype):
     """Cholesky factor of a well-conditioned (1, M, M) SPD matrix, made on
     the card (a large M would take seconds through numpy)."""
-    gen = torch.Generator(device=cuda).manual_seed(M)
-    G = torch.randn(1, M, M, device=cuda, dtype=torch.float64, generator=gen)
-    A = G @ G.transpose(1, 2) / M + torch.eye(M, device=cuda, dtype=torch.float64)
-    return torch.linalg.cholesky(A).to(dtype).contiguous()
+    return torch.linalg.cholesky(_device_spd(cuda, M)).to(dtype).contiguous()
 
 
 # M where each CTA no longer holds every x_p (f64 from 2568, f32 from 5128),
