@@ -10,11 +10,17 @@ the run with a non-zero exit code and no result line:
   2. build    the hand-written kernels from slampp_tpu_torch/csrc;
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes, in float32 and float64, with frozen
-              pivots, and (TRSMs) at an M beyond the resident slab size
-              and one at which each x_p is pulled, not pushed;
-              timed against the plain version with CUDA events around 20
-              calls (ms, host launch path included) and as device time per
-              launch from torch.profiler (device_ms);
+              pivots; the Cholesky also at the exact mode's f64 shapes and
+              the first M on each side of its resident / streaming
+              boundary, the TRSMs at an M beyond the resident slab size
+              and one at which each x_p is pulled, not pushed; timed
+              against the plain version and the library call
+              (torch.linalg.cholesky_ex for the Cholesky; the TRSMs' plain
+              version is torch.linalg.solve_triangular) with CUDA events
+              around 20 calls (ms, host launch path included) and as device
+              time per launch from torch.profiler (device_ms), beside the
+              bound (bound_ms: the card's least time for the call's bytes
+              or FLOPs at its peak rates);
   4. main     manhattan3500, mixed precision, chain mode, target 64,
               refine 0, 5 fused GN iterations; chi2 within 5e-3 of the f64
               oracle 404.504, every kernel launched by that run;
@@ -111,10 +117,32 @@ def _device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     raise RuntimeError("the profiler recorded no device time")
 
 
+# peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# HBM bytes/s and FLOP/s outside the tensor cores, by dtype
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+
+def _bound(name, K, M, S, dtype):
+    """Least time (ms) the card could take for one call, and what bounds it:
+    the larger of the bytes (the lower triangle read once, B read once, the
+    output written once) over the memory rate and the FLOPs (Cholesky M^3/3,
+    triangular solve M^2 S per matrix) over the peak rate of the dtype."""
+    size = 4 if dtype == "float32" else 8
+    tri = M * (M + 1) // 2
+    if name == "chol_batched":
+        flops, nbytes = K * M ** 3 / 3, K * (tri + M * M) * size
+    else:
+        flops, nbytes = K * M * M * S, K * (tri + 2 * M * S) * size
+    t_bytes, t_flops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
 def _check_kernels(dev):
     """Phase 3: every kernel against its plain version at the path's shapes.
-    Returns {kernel: [max_abs_err, ms, plain_ms, device_ms, plain_device_ms]}
-    with the times at the main path's own shape (the float32 separator)."""
+    Returns {kernel: {...}}: the largest |kernel - plain| over the unfrozen
+    cases, and the times and bound at the main path's own shape (the float32
+    separator)."""
     import numpy as np
     import torch
 
@@ -130,35 +158,46 @@ def _check_kernels(dev):
         A[:, keep, keep] += M
         return A
 
-    frozen = (5, 200, 487)
-    cases = [  # (kernel, K, M, S, frozen pivots); M = 1096 is beyond the
-        # TRSMs' resident slab size in both precisions, and at M = 3104 the
-        # f64 solve pulls each x_p (its x tiles no longer fit every CTA)
-        ("chol_batched", 55, 192, None, ()),
-        ("chol_batched", 1, 488, None, ()),
-        ("chol_batched", 1, 488, None, frozen),
-        ("trsm_lower_batched", 55, 192, 48, ()),
-        ("trsm_lower_batched", 55, 192, 8, ()),
-        ("trsm_lower_batched", 1, 488, 8, ()),
-        ("trsm_lower_batched", 1, 488, 8, frozen),
-        ("trsm_lower_batched", 1, 1096, 8, ()),
-        ("trsm_lower_batched", 1, 3104, 8, ()),
-        ("trsm_lower_t_batched", 55, 192, 8, ()),
-        ("trsm_lower_t_batched", 1, 488, 8, ()),
-        ("trsm_lower_t_batched", 1, 488, 8, frozen),
-        ("trsm_lower_t_batched", 1, 1096, 8, ()),
-        ("trsm_lower_t_batched", 1, 3104, 8, ()),
+    f32, f64 = torch.float32, torch.float64
+    both, timed32, timed64 = (f32, f64), {f32}, {f64}
+    res32, res64 = dk.chol_resident_max_m(f32), dk.chol_resident_max_m(f64)
+    cases = [  # (kernel, K, M, S, frozen pivots, dtypes, timed dtypes).
+        # Cholesky: the dense frames' part blocks (resident in shared
+        # memory), the separator (streamed), the exact mode's f64 shapes and
+        # the first M on each side of the resident / streaming boundary.
+        # TRSMs: M = 1096 is beyond their resident slab size in both
+        # precisions, and at M = 3104 the f64 solve pulls each x_p
+        ("chol_batched", 55, 192, None, (), both, timed32),
+        ("chol_batched", 55, 192, None, (5, 100, 191), both, ()),
+        ("chol_batched", 1, 488, None, (), both, timed32),
+        ("chol_batched", 1, 488, None, (5, 200, 487), both, ()),
+        ("chol_batched", 8, 192, None, (), (f64,), timed64),
+        ("chol_batched", 1, 48, None, (), (f64,), timed64),
+        ("chol_batched", 2, res32, None, (), (f32,), ()),
+        ("chol_batched", 2, res32 + 8, None, (), (f32,), ()),
+        ("chol_batched", 2, res64, None, (), (f64,), ()),
+        ("chol_batched", 2, res64 + 8, None, (), (f64,), ()),
+        ("trsm_lower_batched", 55, 192, 48, (), both, timed32),
+        ("trsm_lower_batched", 55, 192, 8, (), both, timed32),
+        ("trsm_lower_batched", 1, 488, 8, (), both, timed32),
+        ("trsm_lower_batched", 1, 488, 8, (5, 200, 487), both, ()),
+        ("trsm_lower_batched", 1, 1096, 8, (), both, ()),
+        ("trsm_lower_batched", 1, 3104, 8, (), both, ()),
+        ("trsm_lower_t_batched", 55, 192, 8, (), both, timed32),
+        ("trsm_lower_t_batched", 1, 488, 8, (), both, timed32),
+        ("trsm_lower_t_batched", 1, 488, 8, (5, 200, 487), both, ()),
+        ("trsm_lower_t_batched", 1, 1096, 8, (), both, ()),
+        ("trsm_lower_t_batched", 1, 3104, 8, (), both, ()),
     ]
-    main_shape = {"chol_batched": (1, 488), "trsm_lower_batched": (1, 488),
-                  "trsm_lower_t_batched": (1, 488)}
+    main_shape = (1, 488, f32)
     plain = {"chol_batched": dk.chol_batched_plain,
              "trsm_lower_batched": dk.trsm_lower_batched_plain,
              "trsm_lower_t_batched": dk.trsm_lower_t_batched_plain}
-    summary = {k: [0.0, None, None, None, None] for k in plain}
-    for name, K, M, S, zero_rows in cases:
+    summary = {k: {"max_abs_err": 0.0} for k in plain}
+    for name, K, M, S, zero_rows, dtypes, timed in cases:
         A64 = spd(K, M, zero_rows)
         B64 = rng.normal(size=(K, M, S)) if S else None
-        for dtype in (torch.float32, torch.float64):
+        for dtype in dtypes:
             t0 = time.perf_counter()
             A = torch.from_numpy(A64).to(dev, dtype)
             if name == "chol_batched":
@@ -184,10 +223,12 @@ def _check_kernels(dev):
                 L, B = args
                 Lop = L if name == "trsm_lower_batched" else L.transpose(1, 2)
                 rel, tol = float((Lop @ out - B).abs().max() / B.abs().max()), TOL_F32
-            info = {"kernel": name, "shape": [K, M, S] if S else [K, M, M],
-                    "dtype": str(dtype).split(".")[1], "frozen": list(zero_rows),
-                    "max_abs_err": err, "rel_err": rel, "tol": tol}
-            if dtype == torch.float32 and not zero_rows and M <= 488:
+            dt = str(dtype).split(".")[1]
+            info = {"kernel": name, "shape": [K, M, S] if S else [K, M, M], "dtype": dt,
+                    "frozen": list(zero_rows), "max_abs_err": err, "rel_err": rel, "tol": tol}
+            if name == "chol_batched":
+                info["resident"] = M <= (res32 if dtype == f32 else res64)
+            if dtype in timed:
                 info["ms"] = _time_ms(lambda: kern(*args))
                 info["plain_ms"] = _time_ms(lambda: plain[name](*args))
                 info["device_ms"] = _device_ms(lambda: kern(*args))
@@ -195,11 +236,19 @@ def _check_kernels(dev):
                 info["plain_device_ms"] = _device_ms(
                     lambda: plain[name](*args), reps=2 if name == "chol_batched" else 20,
                     warmup=1)
-                if (K, M) == main_shape[name]:
-                    summary[name][1:] = [info["ms"], info["plain_ms"], info["device_ms"],
-                                         info["plain_device_ms"]]
+                if name == "chol_batched":  # cuSOLVER's: a yardstick, never called by the port
+                    info["library_ms"] = _time_ms(lambda: torch.linalg.cholesky_ex(A))
+                    info["library_device_ms"] = _device_ms(lambda: torch.linalg.cholesky_ex(A))
+                else:  # the plain TRSM is the library call, torch.linalg.solve_triangular
+                    info["library_ms"] = info["plain_ms"]
+                    info["library_device_ms"] = info["plain_device_ms"]
+                info["bound_ms"], info["bound_by"] = _bound(name, K, M, S, dt)
+                if (K, M, dtype) == main_shape:
+                    summary[name].update({k: info[k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
+                        "plain_device_ms", "library_device_ms")})
             if not zero_rows:
-                summary[name][0] = max(summary[name][0], err)
+                summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
             _line("kernels", finite and rel <= tol, time.perf_counter() - t0, **info)
     return summary
 
@@ -270,10 +319,10 @@ def main() -> int:
     print(json.dumps({"main_path": {
         "metric": "manhattan3500_gn_iters_per_sec", "value": main["iters_per_sec"],
         "chi2_final": main["chi2_final"], "chi2_ok": True, "card": smi}}))
+    iters = main["n_iters"] * (1 + main["n_rep"])  # GN iterations in the main phase
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-         "launches": launches[k], "max_abs_err": v[0], "ms": v[1], "plain_ms": v[2],
-         "device_ms": v[3], "plain_device_ms": v[4]}
+         "launches": launches[k], "launches_per_iter": launches[k] / iters, **v}
         for k, v in summary.items()
     ]}))
     print(smi)

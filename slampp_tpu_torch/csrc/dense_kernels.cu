@@ -13,18 +13,53 @@
 // (a Mosaic workaround for dynamic lane slices); here the kernels walk
 // panels of kNB = 32 rows with plain indexing.
 //
-// Cholesky.  At the partitioned solver's shapes ((55, 192, 192) part
-// frames, one (488, 488) separator on manhattan3500) the work is 0.1-20
-// MFLOP per call: launch latency and the serial dependence between panels
-// set the time, not FLOPs or bytes.  One CTA owns one matrix, so a call is
-// a single launch with no inter-CTA synchronisation; 32-wide panels cut the
-// CTA-wide barriers to ~3 per panel, and inside a panel the dependent steps
-// run within one warp (shuffles and __syncwarp).  The factor is updated in
-// place in the output buffer (L2-resident); the current panel is staged in
-// shared memory.  Pivot freezing (_chol_value, dense_kernels.py:69-112): the
-// test is on the fully updated diagonal entry d; d <= clamp (or NaN) gives
-// d = 1e20, L_jj = sqrt(d), and the column multipliers divide by L_jj, so a
-// failed pivot freezes its column at about 0 instead of amplifying it.
+// Cholesky: one CTA per matrix, register-tiled.  A call is one launch of K
+// CTAs of 512 threads, no cluster.  At the path's shapes the bound is tiny
+// ((1, 488, 488) f32: 38.7 MFLOP, 0.58 us at 67 TFLOP/s; (55, 192, 192):
+// 12.2 MB, 3.6 us at 3.35 TB/s); what holds one CTA back is the serial chain
+// of 32-wide panels and the rate at which one SM feeds its FMAs from shared
+// memory.  The first design (PR 1) took 1.48 ms at (1, 488, 488): 60% in a
+// trailing update that issued two shared loads per FMA and a read-modify-
+// write of every element through L2, 23% in one warp's shared read-modify-
+// write loops for each diagonal block, 11% in a one-thread-per-row panel
+// solve with strided global reads, 6% in an element-by-element copy of A
+// (phase timestamps, chol_times.py).  This design, per panel p:
+//
+//  * Diagonal block: warp 0 holds its rows in registers and factors it one
+//    column per step, the column broadcast by shuffles; the next pivot's
+//    reciprocal square root (MUFU.RSQ in f32) is taken as soon as its entry
+//    is updated, so it overlaps the rest of the step.  Warps 0-7 then invert
+//    it (invert_diag, shared with the TRSMs).  Pivot freezing as
+//    _chol_value (dense_kernels.py:69-112): the test is on the fully updated
+//    diagonal entry d; d <= clamp (or NaN) gives d = 1e20, and the column's
+//    multipliers are scaled by 1 / L_jj, so a failed pivot freezes its
+//    column at about 0 (L_jj = 1e10) instead of amplifying it.
+//  * Panel: W = A_p L_d^-T, one row per thread in registers, the rows of
+//    L_d^-1 read as broadcast 16-byte vectors; W also goes, transposed, to
+//    shared memory for the update.
+//  * Trailing update: each warp takes 32 x 32 tiles of the lower trailing
+//    triangle in turn, each lane a 4 x 8 register tile, 32 FMAs per three
+//    16-byte shared loads of W^T; the tile is read and written once per
+//    panel.  Its rate is set by those shared loads, not the FMAs (about 8
+//    SM cycles a warp-wide 16-byte load at the measured round times); an
+//    8 x 8 register tile in f32 (four loads per 64 FMAs) made full rounds
+//    20% shorter but spilled and lengthened the short rounds of the last
+//    panels, and was slower in all.
+//  * Resident form, where the packed lower triangle fits the 227 KB opt-in
+//    beside the rest (f32 M <= 288, f64 M <= 192 on an H100: the dense
+//    frames' part blocks in both dtypes): it is loaded once by one
+//    cp.async.bulk per row on an mbarrier, factored in shared memory and
+//    written back once with the upper triangle zeroed.  Otherwise
+//    (streaming: the separator) the factor is formed in the output
+//    (L2-resident): the first panel reads A, the part right of each
+//    diagonal block is zeroed once, and each panel's rows are staged in
+//    shared memory by coalesced 16-byte copies.  The form is a template
+//    parameter, chosen on the host per (device, M, dtype) and kept.
+//  * M up to 6336 (f32) / 3104 (f64), as before: from M = 1736 (f32) / 840
+//    (f64) the update takes W^T 16 columns at a time, from 3432 / 1640 8
+//    columns; above the limit the launch returns cudaErrorInvalidValue.
+//  * No tensor cores (TF32 would miss the f32 tolerance; f64 DMMA is queued
+//    work) and no cluster: the separator runs on one SM.
 //
 // Triangular solves: a cluster-resident wavefront.  The first design (one
 // CTA per matrix and 8-column group of B, 32-row panels in order) was bound

@@ -226,10 +226,13 @@ def _device_spd(cuda, M):
     return G @ G.transpose(1, 2) / M + torch.eye(M, device=cuda, dtype=torch.float64)
 
 
-# the largest M per dtype (the plain version would take minutes there): by
-# relative residual against A; and M + 8 raises
+# large M, where the update takes W^T 16 (f64 1024, f32 2048) and 8
+# columns at a time, up to the largest M per dtype (the plain version would
+# take minutes there): by relative residual against A; and M + 8 raises
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,M,tol", [(torch.float64, 3104, 1e-10),
+@pytest.mark.parametrize("dtype,M,tol", [(torch.float64, 1024, 1e-10),
+                                         (torch.float64, 3104, 1e-10),
+                                         (torch.float32, 2048, 1e-4),
                                          (torch.float32, 6336, 1e-4)])
 def test_cuda_chol_largest_m_residual(cuda, dtype, M, tol):
     A = _device_spd(cuda, M)
