@@ -52,6 +52,9 @@ def _build(source: Path, tag: str, extra=()) -> ctypes.CDLL:
         fn = getattr(lib, f"slampp_chol_{dt}")
         fn.argtypes = [p, p, i32, i32, f64, p]
         fn.restype = i32
+    if "-DSLAMPP_CHOL_PHASES" in extra:
+        lib.slampp_chol_marks.argtypes = [p, i32]
+        lib.slampp_chol_marks.restype = i32
     return lib
 
 
@@ -75,7 +78,6 @@ def _phases(lib: ctypes.CDLL, A: torch.Tensor):
     torch.cuda.synchronize()
     n = 4 * 800 + 3
     marks = (ctypes.c_ulonglong * n)()
-    lib.slampp_chol_marks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     if lib.slampp_chol_marks(marks, n):
         raise RuntimeError("reading the marks failed")
     P = (M + 31) // 32  # 32-wide panels

@@ -18,12 +18,13 @@
 // ((1, 488, 488) f32: 38.7 MFLOP, 0.58 us at 67 TFLOP/s; (55, 192, 192):
 // 12.2 MB, 3.6 us at 3.35 TB/s); what holds one CTA back is the serial chain
 // of 32-wide panels and the rate at which one SM feeds its FMAs from shared
-// memory.  The first design (PR 1) took 1.48 ms at (1, 488, 488): 60% in a
-// trailing update that issued two shared loads per FMA and a read-modify-
-// write of every element through L2, 23% in one warp's shared read-modify-
-// write loops for each diagonal block, 11% in a one-thread-per-row panel
-// solve with strided global reads, 6% in an element-by-element copy of A
-// (phase timestamps, chol_times.py).  This design, per panel p:
+// memory.  The first design took 1.48 ms at (1, 488, 488) on an H100: 60%
+// in a trailing update that issued two shared loads per FMA and a read-
+// modify-write of every element through L2, 23% in one warp's shared
+// read-modify-write loops for each diagonal block, 11% in a one-thread-per-
+// row panel solve with strided global reads, 6% in an element-by-element
+// copy of A (phase timestamps, apps/chol_times.py).  This design, per
+// panel p:
 //
 //  * Diagonal block: warp 0 holds its rows in registers and factors it one
 //    column per step, the column broadcast by shuffles; the next pivot's
@@ -43,7 +44,7 @@
 //    panel.  Its rate is set by those shared loads, not the FMAs (about 8
 //    SM cycles a warp-wide 16-byte load at the measured round times); an
 //    8 x 8 register tile in f32 (four loads per 64 FMAs) made full rounds
-//    20% shorter but spilled and lengthened the short rounds of the last
+//    21% shorter but spilled and lengthened the short rounds of the last
 //    panels, and was slower in all.
 //  * Resident form, where the packed lower triangle fits the 227 KB opt-in
 //    beside the rest (f32 M <= 288, f64 M <= 192 on an H100: the dense

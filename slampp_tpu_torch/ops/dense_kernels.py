@@ -22,6 +22,8 @@ show its main path went through the kernels; ``reset_launches`` zeroes it.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 PB = 8  # the callers' padding grid: M is a multiple of PB
@@ -157,8 +159,6 @@ def chol_resident_max_m(dtype: torch.dtype, device="cuda") -> int:
     """The largest M at which the Cholesky kernel keeps the matrix resident
     in shared memory on ``device`` (a larger M streams it through the
     output buffer), from the kernel's own plan."""
-    import ctypes
-
     from slampp_tpu_torch.ops import _cuda
 
     lib = _cuda.load()

@@ -165,7 +165,8 @@ def test_v3_mixed_chi2_trajectory_tracks_f64():
 
     def run(mixed):
         graph = system.snapshot("cpu")
-        ps = PartitionedSolver(system, target=32, mixed_precision=mixed, refine_iters=2, device="cpu")
+        ps = PartitionedSolver(system, target=32, mixed_precision=mixed, refine_iters=2,
+                               device="cpu")
         chis = []
         for _ in range(5):
             states, _, chi2 = ps.gn_step(graph)
