@@ -41,11 +41,12 @@
 //  * Trailing update: each warp takes 32 x 32 tiles of the lower trailing
 //    triangle in turn, each lane a 4 x 8 register tile, 32 FMAs per three
 //    16-byte shared loads of W^T; the tile is read and written once per
-//    panel.  Its rate is set by those shared loads, not the FMAs (about 8
-//    SM cycles a warp-wide 16-byte load at the measured round times); an
-//    8 x 8 register tile in f32 (four loads per 64 FMAs) made full rounds
-//    21% shorter but spilled and lengthened the short rounds of the last
-//    panels, and was slower in all.
+//    panel.  A round (one tile per warp) takes about 2.5x the issue time of
+//    its FMAs: the depth loop issues loads and address arithmetic beside
+//    them, and every warp loads and stores its tile at the same time.  More
+//    FMAs per load (an 8 x 8 register tile in f32) and loading the next
+//    tile during the current one both ran into the 128-register cap of 512
+//    threads (spills) and were slower.
 //  * Resident form, where the packed lower triangle fits the 227 KB opt-in
 //    beside the rest (f32 M <= 288, f64 M <= 192 on an H100: the dense
 //    frames' part blocks in both dtypes): it is loaded once by one
