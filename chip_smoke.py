@@ -117,10 +117,12 @@ def _device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     raise RuntimeError("the profiler recorded no device time")
 
 
-# peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# HBM bytes/s and FLOP/s outside the tensor cores, by dtype
+# peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM
+# bytes/s, and the card's FLOP/s for each dtype: float32 outside the tensor
+# cores, float64 on its tensor cores (FP64 Tensor Core, 67 TFLOP/s; 34
+# outside them), whether or not the kernel uses them
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 
 def _bound(name, K, M, S, dtype):

@@ -23,7 +23,7 @@
 // modify-write of every element through L2, 23% in one warp's shared
 // read-modify-write loops for each diagonal block, 11% in a one-thread-per-
 // row panel solve with strided global reads, 6% in an element-by-element
-// copy of A (phase timestamps, apps/chol_times.py).  This design, per
+// copy of A (%globaltimer phase timestamps, PERF.md).  This design, per
 // panel p:
 //
 //  * Diagonal block: warp 0 holds its rows in registers and factors it one
@@ -159,29 +159,6 @@ constexpr int kMaxCluster = 16;                      // CTAs per cluster (non-po
 constexpr int kTrsmThreads = kNB * kTrsmCols;        // one (row, column) of a group each
 constexpr int kLdd = kNB + 1;                        // inverted diagonal blocks, padded
 constexpr unsigned kFull = 0xffffffffu;
-
-// Phase timestamps of chol_kernel for slampp_tpu_torch/apps/chol_times.py,
-// compiled in only with -DSLAMPP_CHOL_PHASES: thread 0 of CTA 0 writes
-// %globaltimer to mark i (0: entry, 1: matrix loaded; panel p: 2 + 4p after
-// the diagonal block's factor, 3 + 4p after its inverse, 4 + 4p after the
-// panel, 5 + 4p after the trailing update; 2 + 4P: end).  slampp_chol_marks
-// copies them out.
-#ifdef SLAMPP_CHOL_PHASES
-constexpr int kMaxMarks = 4 * 800 + 3;
-__device__ unsigned long long g_chol_marks[kMaxMarks];
-#define CHOL_MARK(i)                                                                \
-  do {                                                                              \
-    if (blockIdx.x == 0 && threadIdx.x == 0 && (i) < kMaxMarks) {                   \
-      unsigned long long t_;                                                        \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                        \
-      g_chol_marks[i] = t_;                                                         \
-    }                                                                               \
-  } while (0)
-#else
-#define CHOL_MARK(i) \
-  do {               \
-  } while (0)
-#endif
 
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
@@ -910,7 +887,6 @@ __global__ void __launch_bounds__(kCholThreads)
   const int warp = tid >> 5;
   constexpr int kWarps = kCholThreads / 32;
   constexpr int kV = 16 / sizeof(T);
-  CHOL_MARK(0);
 
   if constexpr (kRes) {
     // the lower triangle (each row up to the end of its diagonal block) in
@@ -941,7 +917,6 @@ __global__ void __launch_bounds__(kCholThreads)
         *reinterpret_cast<typename Vec16<T>::type*>(row + c) = typename Vec16<T>::type{};
     }
   }
-  CHOL_MARK(1);
 
   T* fac = kRes ? sL : l;
   for (int p = 0; p < P; ++p) {
@@ -951,7 +926,6 @@ __global__ void __launch_bounds__(kCholThreads)
     // 1. the diagonal block (warp 0), then its inverse (warps 0-7)
     if (warp == 0) chol_diag<T, kRes>(src, fac, kRes ? nullptr : sD, M, j0, w, clamp);
     __syncthreads();
-    CHOL_MARK(2 + 4 * p);
     if (warp < 8) {
       if constexpr (kRes)
         invert_diag<T, false, kLdv<T>>(sL + packed_row<T>(j0) + j0, packed_ld<T>(p), w, sDi);
@@ -959,11 +933,9 @@ __global__ void __launch_bounds__(kCholThreads)
         invert_diag<T, false, kLdv<T>>(sD, kLdd, w, sDi);
     }
     __syncthreads();
-    CHOL_MARK(3 + 4 * p);
     // 2. the panel below it
     chol_panel<T, kRes>(src, fac, sS, rs, sDi, kc == kNB ? sWt : nullptr, ldw, M, Mp, j0);
     __syncthreads();
-    CHOL_MARK(4 + 4 * p);
     // 3. the trailing update, kc columns of W^T at a time
     if (p + 1 < P) {
       const int j1 = j0 + kNB;
@@ -981,7 +953,6 @@ __global__ void __launch_bounds__(kCholThreads)
       }
     }
     __syncthreads();
-    CHOL_MARK(5 + 4 * p);
   }
 
   if constexpr (kRes) {
@@ -997,7 +968,6 @@ __global__ void __launch_bounds__(kCholThreads)
       }
     }
   }
-  CHOL_MARK(2 + 4 * P);
 }
 
 int optin_smem(int* optin) {
@@ -1231,12 +1201,6 @@ int slampp_trsm_bwd_f32(const void* L, const void* B, void* X, int K, int M, int
 int slampp_trsm_bwd_f64(const void* L, const void* B, void* X, int K, int M, int S, void* stream) {
   return launch_trsm<double, true>(L, B, X, K, M, S, stream);
 }
-#ifdef SLAMPP_CHOL_PHASES
-int slampp_chol_marks(unsigned long long* host, int n) {
-  return static_cast<int>(
-      cudaMemcpyFromSymbol(host, g_chol_marks, sizeof(unsigned long long) * imin(n, kMaxMarks)));
-}
-#endif
 int slampp_chol_resident_max(int f64, int* out) {
   return f64 ? resident_max_m<double>(out) : resident_max_m<float>(out);
 }
