@@ -25,7 +25,24 @@ the run with a non-zero exit code and no result line:
               refine 0, 5 fused GN iterations; chi2 within 5e-3 of the f64
               oracle 404.504, every kernel launched by that run;
   5. dense    the same graph through the dense-frame branch (ch_ok=0);
-  6. exact    manhattan500 in float64 end to end; chi2 within 1e-6 of 26.095453.
+  6. exact    manhattan500 in float64 end to end; chi2 within 1e-6 of 26.095453;
+  7-11.       the batch solvers on manhattan3500 as the JAX package's CLI
+              builds them, one optimize with its defaults (5 iterations, min
+              |dx| 0.01; apps/manhattan.run_solver): gn (GaussNewtonSolver,
+              native v1 engine, f64), lm and dl (LevenbergMarquardtSolver /
+              DoglegSolver, dense f64, H 10500 x 10500), lm-v3 and dl-v3 (the
+              partitioned engine, mixed, refine_iters=2).  chi2 against the
+              JAX package's (JAX_REF): f64 within 1e-6 with the same
+              iterations applied, mixed within 5e-3.  The v3 phases must
+              launch all three kernels, the native and dense ones none;
+  12. prior   one PartitionedSolver.gn_step_prior (mixed, refine 2, 14
+              scattered vertices forced into the separator, a seeded SPD
+              prior) against the dense f64 solve of (H + P) dx = -(g + p) on
+              the card (apps/manhattan.run_prior): relative residual within
+              1e-5, |dx| within 1e-4; all three kernels launched.
+Each phase's launches are counted from zero over that phase alone.  The
+whole script takes about two and a half minutes on an H100, the kernels'
+build included.
 
 Then the kernel summary (JSON), the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
@@ -45,6 +62,25 @@ ROOT = Path(__file__).resolve().parent
 # (bench.py _MANHATTAN_F64_CHI2, scripts/tpu_smoke.py)
 CHI2_3500, TOL_3500 = 404.504, 5e-3
 CHI2_500, TOL_500 = 26.095453, 1e-6
+# (chi2 after optimize, iterations applied) of the JAX package's batch
+# solvers on the seed-0 manhattan3500 graph, run on the CPU with the port's
+# chain-mode configuration (SLAMPP_CHAIN_SEP_XLA=0) by
+#   python tests/_torch_jax_util.py 3500
+JAX_REF = {
+    "gn": (404.5038446353009, 5),
+    "lm": (6933.51111952435, 5),
+    "lm-v3": (6933.505879193458, 5),
+    "dl": (377994.0042546363, 5),
+    "dl-v3": (24395.493175597476, 5),
+}
+SOLVER_PHASES = (("gn", "lambda", None), ("lm", "lambda-lm", None), ("lm-v3", "lambda-lm", "v3"),
+                 ("dl", "lambda-dl", None), ("dl-v3", "lambda-dl", "v3"))
+TOL_SOLVER_F64 = 1e-6
+# prior step against its dense f64 oracle: the relative residual of its dx in
+# (H + P) dx = -(g + p), the mixed-mode bound of tests/test_torch_partitioned.py
+# (raw dx is not compared: the mixed solve leaves the near-null gauge
+# direction inexact), and |dx| relative
+TOL_PRIOR_RES, TOL_PRIOR_DX = 1e-5, 1e-4
 # kernel-against-plain tolerances: f64 max |kernel - plain| over max |plain|;
 # f32 relative residual (|L L^T - A| over |A|, |L X - B| over |B|), since the
 # kernels round in another order than the panel-blocked plain versions
@@ -171,7 +207,7 @@ def _check_kernels(dev):
         # precisions, and at M = 3104 the f64 solve pulls each x_p
         ("chol_batched", 55, 192, None, (), both, timed32),
         ("chol_batched", 55, 192, None, (5, 100, 191), both, ()),
-        ("chol_batched", 1, 488, None, (), both, timed32),
+        ("chol_batched", 1, 488, None, (), both, both),
         ("chol_batched", 1, 488, None, (5, 200, 487), both, ()),
         ("chol_batched", 8, 192, None, (), (f64,), timed64),
         ("chol_batched", 1, 48, None, (), (f64,), timed64),
@@ -190,6 +226,12 @@ def _check_kernels(dev):
         ("trsm_lower_t_batched", 1, 488, 8, (5, 200, 487), both, ()),
         ("trsm_lower_t_batched", 1, 1096, 8, (), both, ()),
         ("trsm_lower_t_batched", 1, 3104, 8, (), both, ()),
+        # the exact f64 mode's TRSMs (manhattan500: K=8, M=192, S+1 padded
+        # to 24; separator Ms=48)
+        ("trsm_lower_batched", 8, 192, 24, (), (f64,), timed64),
+        ("trsm_lower_batched", 1, 48, 8, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 8, 192, 8, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 1, 48, 8, (), (f64,), timed64),
     ]
     main_shape = (1, 488, f32)
     plain = {"chol_batched": dk.chol_batched_plain,
@@ -269,6 +311,57 @@ def _run_path(phase, run, dev, n_poses, expected, tol, **kw):
     return res
 
 
+def _solver_phase(phase, nls, engine, dev):
+    """One batch solver on manhattan3500 against the JAX package's result;
+    its kernel launches counted from zero."""
+    import torch
+
+    from slampp_tpu_torch.apps import manhattan
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    expected, applied_ref = JAX_REF[phase]
+    t0 = time.perf_counter()
+    dk.reset_launches()
+    res = manhattan.run_solver(3500, dev, nls, engine)
+    launches = dict(dk.launches)
+    states = res.pop("states")
+    rel = abs(res["chi2_final"] - expected) / expected
+    exact = engine is None
+    tol = TOL_SOLVER_F64 if exact else TOL_3500
+    finite = all(bool(torch.isfinite(s).all()) for s in states.values())
+    ok = rel <= tol and finite and states["pose2d"].shape == (3500, 3)
+    if exact:
+        ok = ok and res["applied"] == applied_ref and not any(launches.values())
+    else:
+        ok = ok and all(v > 0 for v in launches.values())
+    iters = res["iterations"]
+    _line(phase, ok, time.perf_counter() - t0, expected=expected, applied_ref=applied_ref,
+          rel_err=rel, tol=tol, launches_per_iter={k: v / iters for k, v in launches.items()},
+          **res)
+    return {k: v / iters for k, v in launches.items()}
+
+
+def _prior_phase(dev):
+    import torch
+
+    from slampp_tpu_torch.apps import manhattan
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    t0 = time.perf_counter()
+    dk.reset_launches()
+    res = manhattan.run_prior(3500, dev)
+    launches = dict(dk.launches)
+    states = res.pop("states")
+    dx_rel = abs(res["dx_norm"] - res["dx_norm_ref"]) / res["dx_norm_ref"]
+    ok = (res["residual"] <= TOL_PRIOR_RES and dx_rel <= TOL_PRIOR_DX
+          and abs(res["chi2"] - res["chi2_ref"]) <= 1e-9 * res["chi2_ref"]
+          and all(bool(torch.isfinite(s).all()) for s in states.values())
+          and all(v > 0 for v in launches.values()))
+    _line("prior", ok, time.perf_counter() - t0, dx_rel_err=dx_rel,
+          tol_residual=TOL_PRIOR_RES, tol_dx=TOL_PRIOR_DX, **res)
+    return launches
+
+
 def main() -> int:
     if not (ROOT / SOURCE).exists():
         print("FAIL: chip_smoke.py must run from a checkout of the repository", flush=True)
@@ -318,13 +411,20 @@ def main() -> int:
     # 6. exact float64 mode
     _run_path("exact", manhattan.run, dev, 500, CHI2_500, TOL_500, mixed_precision=False, n_rep=2)
 
+    # 7-12. the batch solvers and the prior step, launches per iteration
+    iters = main["n_iters"] * (1 + main["n_rep"])  # GN iterations in the main phase
+    per_iter = {"main": {k: v / iters for k, v in launches.items()}}
+    for phase, nls, engine in SOLVER_PHASES:
+        per_iter[phase] = _solver_phase(phase, nls, engine, dev)
+    per_iter["prior"] = _prior_phase(dev)
+
     print(json.dumps({"main_path": {
         "metric": "manhattan3500_gn_iters_per_sec", "value": main["iters_per_sec"],
         "chi2_final": main["chi2_final"], "chi2_ok": True, "card": smi}}))
-    iters = main["n_iters"] * (1 + main["n_rep"])  # GN iterations in the main phase
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-         "launches": launches[k], "launches_per_iter": launches[k] / iters, **v}
+         "launches": launches[k], "launches_per_iter": launches[k] / iters,
+         "launches_per_iter_by_phase": {ph: d[k] for ph, d in per_iter.items()}, **v}
         for k, v in summary.items()
     ]}))
     print(smi)

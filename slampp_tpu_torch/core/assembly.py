@@ -74,12 +74,43 @@ def assemble_dense(graph: GraphArrays) -> Tuple[torch.Tensor, torch.Tensor, torc
     return H[:N, :N], g[:N], chi2
 
 
+def max_edge_hessian_diag(graph: GraphArrays) -> torch.Tensor:
+    """max over edges and slots of max diag(J_a^T W J_a), the LM initial
+    damping's scale (JAX ``solvers/lm._max_edge_hessian_diag``; reference
+    f_Max_VertexHessianDiagValue, NonlinearSolver_Lambda_LM.h:152-199)."""
+    best = torch.zeros((), dtype=torch.float64, device=graph.device)
+    for name, ea in graph.edges.items():
+        et = get_edge_type(name)
+        _, jacs = et.jacobian_fn(slot_states(et, ea, graph.states), ea.meas)
+        for J in jacs:
+            Haa = torch.einsum("eji,ejk,ekl->eil", J, ea.sigma_inv, J)
+            d = torch.diagonal(Haa, dim1=1, dim2=2).amax(1)
+            best = torch.maximum(best, torch.where(ea.valid, d, 0.0).amax())
+    return best
+
+
 def apply_update(graph: GraphArrays, dx: torch.Tensor) -> Dict[str, torch.Tensor]:
     """states <- retract(states, dx) per vertex type."""
+    return _retract(graph, dx, None)
+
+
+def apply_update_gated(graph: GraphArrays, dx: torch.Tensor, threshold) -> Dict[str, torch.Tensor]:
+    """Threshold-gated vertex updates (fluid relinearization): a vertex moves
+    only when the norm of its tangent update exceeds ``threshold`` (reference
+    f_UpdateThreshold, NonlinearSolver_Lambda_DL.h:399).  ``threshold=0``
+    behaves as :func:`apply_update`."""
+    return _retract(graph, dx, threshold)
+
+
+def _retract(graph: GraphArrays, dx: torch.Tensor, threshold) -> Dict[str, torch.Tensor]:
     dxp = torch.cat([dx, dx.new_zeros(_dmax(graph))])
     out = {}
     for t, st in graph.states.items():
         vt = get_vertex_type(t)
         idx = graph.vertex_offsets[t][:, None] + torch.arange(vt.dim, device=dx.device)
-        out[t] = vt.retract(st, dxp[idx])
+        delta = dxp[idx]
+        if threshold is not None:
+            keep = torch.linalg.vector_norm(delta, dim=1) > threshold
+            delta = torch.where(keep[:, None], delta, 0.0)
+        out[t] = vt.retract(st, delta)
     return out

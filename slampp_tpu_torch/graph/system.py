@@ -185,6 +185,14 @@ class GraphSystem:
     def state_dim(self) -> int:
         return self._layout()[1]
 
+    def update_states(self, new_states: Dict[str, torch.Tensor]) -> None:
+        """Write device states (after an optimize) back into the host pools."""
+        for t, arr in new_states.items():
+            arr = arr.detach().cpu().numpy()
+            lst = self._vstates[t]
+            for i in range(len(lst)):
+                lst[i] = arr[i].copy()
+
     # --------------------------------------------------------------- snapshot
     def snapshot(self, device="cuda") -> GraphArrays:
         """Freeze the graph into tensors on ``device``."""

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from slampp_tpu_torch.core.block_assembly import BlockPlan, EdgeRouting
+from slampp_tpu_torch.core.symbolic import CholeskyPlan
 from slampp_tpu_torch.graph.system import EdgeArrays, GraphArrays
 from slampp_tpu_torch.linear.partitioned import V3Plan
 from slampp_tpu_torch.ops.segments import GroupBucket, GroupedSegments
@@ -75,3 +76,19 @@ def v3_plan(fields: dict) -> V3Plan:
     for k in ("a_pad_eye", "ss_pad_eye", "ch_pad"):
         kw[k] = kw[k].float()
     return V3Plan(**kw)
+
+
+def cholesky_plan(fields: dict) -> CholeskyPlan:
+    """``fields``: every CholeskyPlan attribute (NumPy arrays, ints and the
+    ``slot_of`` dict) of a JAX package plan."""
+    kw = {}
+    for f in dataclasses.fields(CholeskyPlan):
+        v = fields[f.name]
+        if isinstance(v, np.ndarray):
+            v = np.asarray(v, np.int64).copy()
+        elif f.name == "slot_of":
+            v = {(int(i), int(j)): int(s) for (i, j), s in v.items()}
+        else:
+            v = int(v)
+        kw[f.name] = v
+    return CholeskyPlan(**kw)

@@ -30,6 +30,12 @@ inside the loop), as it was an XLA call outside any Pallas kernel in JAX.
 value back to the host; the caller's first read of a result is its one sync.
 Each step marks its layers as profiler ranges (v3.assemble, v3.factor,
 v3.backsolve, v3.update; apps/manhattan.py ``profile`` reads them).
+
+The other steps the JAX package offers go through the same factorization:
+``gn_step_prior`` (a dense prior on a forced separator, the windowed
+incremental solver's live solve), ``damped_step`` (Levenberg-Marquardt) and
+``dogleg_step`` (Powell dogleg), each a sequence of device ops whose outputs
+stay on the device.
 """
 
 from __future__ import annotations
@@ -42,11 +48,12 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from slampp_tpu_torch.core import block_assembly, partition as part_mod
-from slampp_tpu_torch.core.assembly import apply_update, graph_chi2
+from slampp_tpu_torch.core.assembly import apply_update, apply_update_gated, graph_chi2
 from slampp_tpu_torch.graph.system import GraphArrays, GraphSystem
 from slampp_tpu_torch.graph.types import get_vertex_type
 from slampp_tpu_torch.ops import dense_kernels as dk
 from slampp_tpu_torch.ops.segments import GroupedSegments, grouped_segsum_last
+from slampp_tpu_torch.utils.device import require_device
 
 _CR_BASE = 8  # chain length at which cyclic reduction hands off to a dense factorization
 
@@ -133,15 +140,6 @@ class V3Plan(NamedTuple):
         })
 
 
-def _require_device(device: torch.device) -> None:
-    """The solver runs where the caller put it: on the card unless ``cpu``
-    is named, never on the CPU in place of a missing card."""
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "PartitionedSolver: no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-
-
 class PartitionedSolver:
     """v3 engine over a GraphSystem whose vertices share one block size."""
 
@@ -152,13 +150,18 @@ class PartitionedSolver:
         mixed_precision: bool = True,
         refine_iters: int = 1,
         damping_rel: float = 1e-6,
+        forced_separator=None,
         device="cuda",
     ):
+        """``forced_separator``: vertex ids that must land in the dense
+        separator core, where ``gn_step_prior`` adds its prior."""
         self.system = system
         self.target = target
         self.mixed_precision = mixed_precision
         self.refine_iters = refine_iters
         self.damping_rel = damping_rel
+        self.forced_separator = forced_separator
+        self.separator_blocks = None  # sorted block ids, set by symbolic()
         self.device = torch.device(device)
         self._symbolic_key = None
         self.block_plan = None
@@ -166,7 +169,7 @@ class PartitionedSolver:
 
     # ------------------------------------------------------------------ host
     def symbolic(self) -> None:
-        _require_device(self.device)
+        require_device(self.device, "PartitionedSolver")
         system = self.system
         block_of_vid = {vid: b for b, vid in enumerate(system._vorder)}
         n = len(block_of_vid)
@@ -187,7 +190,13 @@ class PartitionedSolver:
             raise ValueError(f"uniform block size required, got dims {vt_dims}")
         bs = vt_dims.pop()
 
-        plan, slot_of, inv = build_v3_geometry(n, pairs, bs, self.target)
+        forced = None
+        if self.forced_separator is not None:
+            forced = [block_of_vid[v] for v in self.forced_separator if v in block_of_vid]
+        extras = {}
+        plan, slot_of, inv = build_v3_geometry(n, pairs, bs, self.target,
+                                               forced_separator=forced, extras=extras)
+        self.separator_blocks = extras["separator"]
         bp = block_assembly.build_block_plan(
             system, slot_of, np.arange(n, dtype=np.int64), plan.nnzb, inv, block_of_vid
         )
@@ -220,15 +229,94 @@ class PartitionedSolver:
                 chi2_0 = chi2
         return states, dxn, chi2_0, graph_chi2(graph.replace_states(states))
 
+    def _assemble(self, graph: GraphArrays):
+        self.ensure_symbolic()
+        with record_function("v3.assemble"):
+            return block_assembly.assemble_blocks_sorted(
+                graph, self.block_plan, hessian_f32=self.mixed_precision)
 
-def build_v3_geometry(n, pairs, bs: int, target: int = 64, max_sep_frac: float = 0.45):
+    def gn_step_prior(self, graph: GraphArrays, sc_prior, rhs_prior, update_threshold=0.0):
+        """One GN step on H + prior: H[sep, sep] += sc_prior, g[sep] +=
+        rhs_prior, dx = -(H + P)^-1 (g + p).
+
+        sc_prior: (Ms, Ms) in separator-frame scalar coordinates (rank order
+        of ``separator_blocks`` x block size, zero-padded to Ms); rhs_prior:
+        (Ms,) in the same frame, g-sign convention.  Returns (new_states,
+        dx_norm, chi2)."""
+        vals, rhs, chi2 = self._assemble(graph)
+        sc = torch.as_tensor(sc_prior, dtype=torch.float64, device=self.device)
+        rp = torch.as_tensor(rhs_prior, dtype=torch.float64, device=self.device)
+        # b64 = -g on the fine rows, so the separator rhs adds -rhs_prior
+        x = _v3_solve_refined(self.plan, vals, -rhs, self.refine_iters, self.damping_rel,
+                              self.mixed_precision, sc_prior=sc, gs_prior=-rp)
+        with record_function("v3.update"):
+            dx = block_assembly.scatter_dx(self.block_plan, x)
+            return apply_update_gated(graph, dx, update_threshold), torch.linalg.norm(dx), chi2
+
+    def damped_step(self, graph: GraphArrays, alpha: float):
+        """One LM-damped step (lambda + alpha I) through the partitioned
+        engine (reference ApplyDamping, NonlinearSolver_Lambda_LM.h:235-243).
+        alpha is added to the diagonal before equilibration, rounded to the
+        dtype of the Hessian blocks (float32 in mixed mode), as in the JAX
+        package.  Returns (new_states, denom, dx_norm, chi2), denom the gain
+        ratio's dx . (alpha dx - g)."""
+        vals, rhs, chi2 = self._assemble(graph)
+        p, bp = self.plan, self.block_plan
+        d = torch.arange(p.bs, device=vals.device)
+        vals[: p.n, d, d] += float(alpha)
+        x = _v3_solve_refined(p, vals, -rhs, self.refine_iters, self.damping_rel,
+                              self.mixed_precision)
+        with record_function("v3.update"):
+            dx = block_assembly.scatter_dx(bp, x)
+            gvec = block_assembly.scatter_dx(bp, rhs[: p.n])
+            denom = torch.dot(dx, alpha * dx - gvec)
+            return apply_update(graph, dx), denom, torch.linalg.norm(dx), chi2
+
+    def dogleg_step(self, graph: GraphArrays, delta: float, relin_threshold: float = 0.0):
+        """One Powell-dogleg step through the partitioned engine (reference
+        CNonlinearSolver_Lambda_DL batch semantics).  Returns (new_states,
+        pred_reduction, dx_norm, chi2)."""
+        vals, rhs, chi2 = self._assemble(graph)
+        p = self.plan
+        grad = rhs[: p.n]  # permuted fine-layout gradient (n, bs)
+        x_gn = _v3_solve_refined(p, vals, -rhs, self.refine_iters, self.damping_rel,
+                                 self.mixed_precision)
+        with record_function("v3.update"):
+            vals64 = vals.to(grad.dtype)
+            gTg = torch.sum(grad * grad)
+            gHg = torch.sum(grad * _spmv_fine(p, vals64, grad))
+            x_sd = -(gTg / torch.clamp_min(gHg, 1e-300)) * grad
+            n_gn = torch.linalg.vector_norm(x_gn)
+            n_sd = torch.linalg.vector_norm(x_sd)
+            d_ = x_gn - x_sd
+            aa = torch.sum(d_ * d_)
+            bb = 2.0 * torch.sum(x_sd * d_)
+            cc = torch.sum(x_sd * x_sd) - delta * delta
+            disc = torch.sqrt(torch.clamp_min(bb * bb - 4 * aa * cc, 0.0))
+            t = torch.clamp((-bb + disc) / torch.clamp_min(2 * aa, 1e-300), 0.0, 1.0)
+            x = torch.where(
+                n_gn <= delta, x_gn,
+                torch.where(n_sd >= delta, x_sd * (delta / torch.clamp_min(n_sd, 1e-300)),
+                            x_sd + t * d_),
+            )
+            pred = -(torch.sum(grad * x) + 0.5 * torch.sum(x * _spmv_fine(p, vals64, x)))
+            dx = block_assembly.scatter_dx(self.block_plan, x)
+            new_states = apply_update_gated(graph, dx, relin_threshold)
+            return new_states, pred, torch.linalg.vector_norm(x), chi2
+
+
+def build_v3_geometry(n, pairs, bs: int, target: int = 64, max_sep_frac: float = 0.45,
+                      forced_separator=None, extras: dict = None):
     """Host: the partitioned-solver geometry for ``n`` blocks of size ``bs``
     with off-diagonal pattern ``pairs`` (original block indices).
 
     Returns ``(V3Plan, slot_of, inv)``: ``inv`` maps an original block to its
     permuted position, ``slot_of`` a PERMUTED ``(i, j)``, ``i >= j``, to its
     fine value slot (diagonal slot j at index j, off-diagonals from ``n``).
-    The plan's tensors are on the CPU (``V3Plan.to`` moves them)."""
+    The plan's tensors are on the CPU (``V3Plan.to`` moves them).
+
+    ``forced_separator``: block ids that must land in the separator;
+    ``extras``, when given, receives {"separator": sorted block ids}."""
     def _do_partition(forced):
         if forced:
             return part_mod.partition_graph_forced(
@@ -237,12 +325,14 @@ def build_v3_geometry(n, pairs, bs: int, target: int = 64, max_sep_frac: float =
         return part_mod.partition_graph(n, sorted(pairs), target=target,
                                         max_sep_frac=max_sep_frac)
 
-    forced_set = set()
+    forced0 = set(forced_separator or [])
+    forced_set = set(forced0)
     part = _do_partition(forced_set)
     # chain-ification: promote one endpoint of every interior-interior
     # coupling that skips a chain position, so part interiors become pure
     # block tridiagonals; give up (dense frames) rather than blow up the
-    # separator on graphs that are not chain-like
+    # separator on graphs that are not chain-like.  The budget counts the
+    # promoted blocks only, not the forced ones
     budget = max(16, n // 8)
     for _ in range(4):
         offenders = set()
@@ -254,11 +344,13 @@ def build_v3_geometry(n, pairs, bs: int, target: int = 64, max_sep_frac: float =
                     offenders.add(int(max(i, j)))
         if not offenders:
             break
-        if len(forced_set | offenders) > budget:
-            part = _do_partition(set())
+        if len(forced_set | offenders) - len(forced0) > budget:
+            part = _do_partition(forced0)
             break
         forced_set |= offenders
         part = _do_partition(forced_set)
+    if extras is not None:
+        extras["separator"] = np.asarray(part.separator, np.int64)
     # permuted order: part interiors (contiguous), then separator
     order = np.concatenate([*(part.parts or [np.zeros(0, np.int64)]), part.separator]).astype(np.int64)
     inv = np.empty(n, np.int64)
@@ -549,17 +641,28 @@ def _separator(p: V3Plan, Ass, gs, C, v):
     return Ls, rhs_s
 
 
-def _chain_factor32(p: V3Plan, vals32, rhs32):
+def _add_prior(Ass, gs, sc_prior, gs_prior):
+    """The separator prior (already in the frames' scaling) on the separator
+    system and rhs."""
+    if sc_prior is not None:
+        Ass = Ass + sc_prior.to(Ass.dtype)
+    if gs_prior is not None:
+        gs = gs + gs_prior.to(gs.dtype)
+    return Ass, gs
+
+
+def _chain_factor32(p: V3Plan, vals32, rhs32, sc_prior=None, gs_prior=None):
     """Chain-mode factorization: batched cyclic reduction over the part
     tridiagonals + the dense separator core.  Returns
-    (levels, root, Uflat, Xu, Xg, Ls, rhs_s)."""
+    (levels, root, Uflat, Xu, Xg, Ls, rhs_s).  ``sc_prior`` (Ms, Ms) /
+    ``gs_prior`` (Ms,) add to the separator system / rhs."""
     bs = p.bs
     Gv, rhsf = _packed(vals32, rhs32)
     dt = vals32.dtype
     D = Gv[p.ch_d_idx] + p.ch_pad.to(dt)[..., None, None] * torch.eye(bs, dtype=dt, device=Gv.device)
     E = Gv[p.ch_e_idx]
     Ub, gk = _chain_gather_U(p, Gv, rhsf)
-    Ass, gs = _chain_sep_frames(p, Gv, rhsf, dt)
+    Ass, gs = _add_prior(*_chain_sep_frames(p, Gv, rhsf, dt), sc_prior, gs_prior)
 
     levels, root = _cr_build(D, E)
     X = _cr_solve(levels, root, torch.cat([Ub, gk[..., None]], -1))  # (K, ch_m, bs, S+1)
@@ -608,10 +711,12 @@ def _chain_solve_with(p: V3Plan, levels, root, Uflat, Xu, Ls, gk_fine):
     return _chain_backsolve(p, Xu, Yg, Ls, rhs_s)
 
 
-def _factor32(p: V3Plan, vals32, rhs32):
-    """Dense-frame factorization: (L, WU, y, Ls, rhs_s) for the solves."""
+def _factor32(p: V3Plan, vals32, rhs32, sc_prior=None, gs_prior=None):
+    """Dense-frame factorization: (L, WU, y, Ls, rhs_s) for the solves;
+    the prior as in :func:`_chain_factor32`."""
     Gv, rhsf = _packed(vals32, rhs32)
     A, U, Ass, gk, gs = _frames(p, Gv, rhsf, vals32.dtype)
+    Ass, gs = _add_prior(Ass, gs, sc_prior, gs_prior)
     L = dk.chol_batched(A)  # (K, M, M)
     B = torch.cat([U, gk[..., None]], -1)
     B = F.pad(B, (0, (-B.shape[-1]) % 8))
@@ -651,17 +756,24 @@ def _spmv_fine(p: V3Plan, vals, x):
 
 
 def _v3_solve_refined(p: V3Plan, vals64, b64, refine: int, damping_rel: float,
-                      mixed: bool = True):
+                      mixed: bool = True, sc_prior=None, gs_prior=None):
     """Partitioned solve of vals x = b: equilibrated float32 + float64
     refinement (``mixed``), or float64 end to end (``mixed=False``, which
     matches the dense oracle to ~1e-8 including the near-singular gauge
     mode).  vals64: (nnzb+1, bs, bs) fine lambda blocks (float32 accepted
-    in mixed mode); b64: (n+1, bs) float64."""
+    in mixed mode); b64: (n+1, bs) float64.
+
+    ``sc_prior`` (Ms, Ms) / ``gs_prior`` (Ms,), float64, add to the
+    separator system / rhs in the b64 sign convention, unscaled: mixed mode
+    equilibrates them with the separator rows' scale factors, and the f64
+    refinement residual includes the prior's term at the separator rows."""
     bs, n = p.bs, p.n
+    if gs_prior is not None and sc_prior is None:
+        raise ValueError("gs_prior requires sc_prior")
     if not mixed:
         b_f = torch.cat([b64[:n], b64.new_zeros(1, bs)], 0)
         with record_function("v3.factor"):
-            L, WU, y, Ls, rhs_s = _factor32(p, vals64[: p.nnzb], b_f)
+            L, WU, y, Ls, rhs_s = _factor32(p, vals64[: p.nnzb], b_f, sc_prior, gs_prior)
         with record_function("v3.backsolve"):
             return _backsolve(p, L, WU, Ls, y, rhs_s)
     d = torch.arange(bs, device=vals64.device)
@@ -671,20 +783,37 @@ def _v3_solve_refined(p: V3Plan, vals64, b64, refine: int, damping_rel: float,
     vals32 = vs.float()
     b32 = torch.cat([(s * b64[:n]).float(), vals32.new_zeros(1, bs)], 0)
 
+    scp = gsp = None
+    if sc_prior is not None:
+        # the separator frame's scale factors; padding rows keep scale 1
+        sp = F.pad(s[p.gs_idx].reshape(-1)[: p.SB * bs], (0, p.Ms - p.SB * bs), value=1.0)
+        scp = (sp[:, None] * sc_prior * sp[None, :]).float()
+        if gs_prior is not None:
+            gsp = (sp * gs_prior).float()
+
     if p.ch_ok:
         with record_function("v3.factor"):
-            levels, root, Uflat, Xu, Xg, Ls, rhs_s = _chain_factor32(p, vals32, b32)
+            levels, root, Uflat, Xu, Xg, Ls, rhs_s = _chain_factor32(p, vals32, b32, scp, gsp)
         with record_function("v3.backsolve"):
             z = _chain_backsolve(p, Xu, Xg, Ls, rhs_s)
     else:
         with record_function("v3.factor"):
-            L, WU, y, Ls, rhs_s = _factor32(p, vals32, b32)
+            L, WU, y, Ls, rhs_s = _factor32(p, vals32, b32, scp, gsp)
         with record_function("v3.backsolve"):
             z = _backsolve(p, L, WU, Ls, y, rhs_s)
     x = s * z.double()
 
     for _ in range(refine):
         r = b64[:n] - _spmv_fine(p, vals64.to(x.dtype), x)
+        if sc_prior is not None:
+            # the full system is (A + S sc S^T) x = b + S gs: the prior's
+            # term at the separator rows, in f64 and unscaled
+            sep = p.gs_idx[: p.SB]
+            xs = F.pad(x[sep].reshape(-1), (0, p.Ms - p.SB * bs))
+            pr = sc_prior @ xs
+            if gs_prior is not None:
+                pr = pr - gs_prior
+            r = r.index_add(0, sep, -pr[: p.SB * bs].reshape(p.SB, bs))
         rs1 = torch.cat([(s * r).float(), vals32.new_zeros(1, bs)], 0)
         if p.ch_ok:
             z = _chain_solve_with(p, levels, root, Uflat, Xu, Ls, rs1)

@@ -90,3 +90,51 @@ def assert_segments_equal(a, b):
     for x, y in zip(a.buckets, b.buckets):
         np.testing.assert_array_equal(x.seg_ids.numpy(), np.asarray(y.seg_ids))
         np.testing.assert_array_equal(x.idx.numpy(), np.asarray(y.idx))
+
+
+def jax_batch_solver(system, nls, engine=None):
+    """The JAX package's batch solver as its CLI builds it for an SE(2) pose
+    graph (``slampp_tpu/apps/main.py:195-228``), ``engine`` overriding the
+    LM / dogleg engine."""
+    from slampp_tpu.solvers.dogleg import DoglegSolver
+    from slampp_tpu.solvers.gauss_newton import GaussNewtonSolver
+    from slampp_tpu.solvers.lm import LevenbergMarquardtSolver
+
+    if nls == "lambda-lm":
+        return LevenbergMarquardtSolver(system, use_schur=False, engine=engine or "dense")
+    if nls == "lambda-dl":
+        return DoglegSolver(system, **({"engine": engine} if engine else {}))
+    return GaussNewtonSolver(system, use_schur=False)
+
+
+def jax_solver_reference(n_poses, nls, engine=None, max_iters=5, min_dx=0.01):
+    """(chi2 after ``optimize``, iterations applied) of the JAX package on
+    the seed-0 Manhattan graph."""
+    system = jax_system(n_poses)
+    solver = jax_batch_solver(system, nls, engine)
+    applied = solver.optimize(max_iters, min_dx)
+    return float(solver.chi2()), int(applied)
+
+
+if __name__ == "__main__":
+    # The JAX package's reference values for chip_smoke.py's solver phases,
+    # on the CPU, with the port's chain-mode configuration (separator through
+    # the dense kernels):
+    #   python tests/_torch_jax_util.py [n_poses]
+    import json
+    import sys
+
+    os.environ["SLAMPP_CHAIN_SEP_XLA"] = "0"
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import slampp_tpu  # noqa: F401  (x64 at import)
+
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 3500
+    for phase, nls, engine in (("gn", "lambda", None), ("lm", "lambda-lm", None),
+                               ("lm-v3", "lambda-lm", "v3"), ("dl", "lambda-dl", None),
+                               ("dl-v3", "lambda-dl", "v3")):
+        chi2, applied = jax_solver_reference(n, nls, engine)
+        print(json.dumps({"phase": phase, "n_poses": n, "chi2": chi2, "applied": applied}),
+              flush=True)
