@@ -40,9 +40,29 @@ the run with a non-zero exit code and no result line:
               prior) against the dense f64 solve of (H + P) dx = -(g + p) on
               the card (apps/manhattan.run_prior): relative residual within
               1e-5, |dx| within 1e-4; all three kernels launched.
+  13-15.      the incremental solvers on the seed-0 Manhattan graph, streamed
+              through the parser's on_edge hook (apps/incremental
+              .run_incremental), against the JAX package's run (JAX_REF),
+              in a child process (chip_smoke.py --incremental) whose BLAS
+              and OpenMP run one thread, as the bench row's child does;
+              the phases above keep the threads they had:
+              fastl        FastLSolver at 800 poses, every-vertex cadence (the
+                           bench row manhattan3500_incremental_steps_per_sec):
+                           the same solves, freezes, refreezes and chunk
+                           relinearizations, streamed and final chi2 within
+                           1e-6 relative, the same optimize() return; all
+                           three kernels launched in the final optimize, in
+                           float64;
+              windowed-v3  WindowedIncrementalSolver on the same graph with
+                           the v3 live engine: the same freezes and
+                           refreezes, streamed and final chi2 within 1e-6,
+                           the same optimize() return, v3 full solves, and
+                           all three kernels launched in float64;
+              every-n      IncrementalSolver on manhattan500, solve_period 10,
+                           3 iterations: chi2 within 1e-6, the same solves.
 Each phase's launches are counted from zero over that phase alone.  The
-whole script takes about two and a half minutes on an H100, the kernels'
-build included.
+whole script takes about three minutes on an H100, the kernels' build
+included.
 
 Then the kernel summary (JSON), the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
@@ -51,6 +71,7 @@ last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -72,7 +93,25 @@ JAX_REF = {
     "lm-v3": (6933.505879193458, 5),
     "dl": (377994.0042546363, 5),
     "dl-v3": (24395.493175597476, 5),
+    # the incremental phases: streamed and final chi2, counters and the
+    # final optimize()'s return, by
+    #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --incremental
+    "fastl": {"n_poses": 800, "chi2_stream": 41.080355532004305, "n_solves": 799,
+              "n_freezes": 10, "n_refreezes": 0, "n_relin": 33, "optimize_return": 2,
+              "chi2_final": 41.080355531223475},
+    "windowed-v3": {"n_poses": 800, "chi2_stream": 41.084904358273, "n_solves": 799,
+                    "n_freezes": 10, "n_refreezes": 0, "n_relin": 186, "optimize_return": 3,
+                    "chi2_final": 41.08053263804514},
+    "every-n": {"n_poses": 500, "chi2_stream": 26.09545575608572, "n_solves": 50,
+                "optimize_return": 63, "chi2_final": 26.09545575608572},
 }
+# the incremental phases: (engine, solver keywords, counters that must equal
+# the JAX package's); chi2 within TOL_SOLVER_F64 relative
+INC_PHASES = (
+    ("fastl", "fastl", {}, ("n_solves", "n_freezes", "n_refreezes", "n_relin")),
+    ("windowed-v3", "windowed", {"live_engine": "v3"}, ("n_solves", "n_freezes", "n_refreezes")),
+    ("every-n", "every-n", {"solve_period": 10, "max_iterations": 3}, ("n_solves",)),
+)
 SOLVER_PHASES = (("gn", "lambda", None), ("lm", "lambda-lm", None), ("lm-v3", "lambda-lm", "v3"),
                  ("dl", "lambda-dl", None), ("dl-v3", "lambda-dl", "v3"))
 TOL_SOLVER_F64 = 1e-6
@@ -232,6 +271,19 @@ def _check_kernels(dev):
         ("trsm_lower_batched", 1, 48, 8, (), (f64,), timed64),
         ("trsm_lower_t_batched", 8, 192, 8, (), (f64,), timed64),
         ("trsm_lower_t_batched", 1, 48, 8, (), (f64,), timed64),
+        # the incremental phases' f64 shapes (manhattan800): the windowed v3
+        # live engine's largest separator (Ms = 80) and a live part frame
+        # (K = 6, M = 96; S + 1 padded to 24), and the final optimize's part
+        # frames (K = 13, M = 192; S + 1 padded to 32)
+        ("chol_batched", 1, 80, None, (), (f64,), timed64),
+        ("chol_batched", 6, 96, None, (), (f64,), timed64),
+        ("chol_batched", 13, 192, None, (), (f64,), timed64),
+        ("trsm_lower_batched", 1, 80, 8, (), (f64,), timed64),
+        ("trsm_lower_batched", 6, 96, 24, (), (f64,), timed64),
+        ("trsm_lower_batched", 13, 192, 32, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 1, 80, 8, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 6, 96, 8, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 13, 192, 8, (), (f64,), timed64),
     ]
     main_shape = (1, 488, f32)
     plain = {"chol_batched": dk.chol_batched_plain,
@@ -362,6 +414,46 @@ def _prior_phase(dev):
     return launches
 
 
+def _incremental_phase(phase, engine, kw, counters, dev):
+    """One incremental solver streamed over the Manhattan graph and then
+    optimized, against the JAX package's run; its kernel launches counted
+    from zero.  Returns the launches per kernel-launching step: per v3 full
+    solve while streaming, per final-optimize iteration, or per GN
+    iteration for every-n."""
+    import torch
+
+    from slampp_tpu_torch.apps import incremental
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    ref = JAX_REF[phase]
+    t0 = time.perf_counter()
+    dk.reset_launches()
+    res = incremental.run_incremental(ref["n_poses"], dev, engine, **kw)
+    launches = dict(dk.launches)
+    states = res.pop("states")
+    rel = {k: abs(res[k] - ref[k]) / ref[k] for k in ("chi2_stream", "chi2_final")}
+    ok = (all(v <= TOL_SOLVER_F64 for v in rel.values())
+          and all(res["counters"][k] == ref[k] for k in counters)
+          and res["optimize_return"] == ref["optimize_return"]
+          and all(bool(torch.isfinite(s).all()) for s in states.values())
+          and states["pose2d"].shape == (ref["n_poses"], 3))
+    f64_launched = {s[0] for s in res["kernel_shapes"] if s[4] == "float64"}
+    if phase == "fastl":
+        ok = (ok and all(v > 0 for v in res["launches_optimize"].values())
+              and f64_launched == set(launches))
+        per = {k: v / res["optimize_return"] for k, v in res["launches_optimize"].items()}
+    elif phase == "windowed-v3":
+        ok = (ok and res["full_solves"]["v3"] > 0 and res["full_solves"]["v3_fallback"] == 0
+              and all(v > 0 for v in res["launches_stream"].values())
+              and f64_launched == set(launches))
+        per = {k: v / res["full_solves"]["v3"] for k, v in res["launches_stream"].items()}
+    else:
+        per = {k: v / res["counters"]["n_iterations"] for k, v in launches.items()}
+    _line(phase, ok, time.perf_counter() - t0, rel_err=rel, tol=TOL_SOLVER_F64,
+          reference=ref, launches=launches, **res)
+    return per
+
+
 def main() -> int:
     if not (ROOT / SOURCE).exists():
         print("FAIL: chip_smoke.py must run from a checkout of the repository", flush=True)
@@ -418,6 +510,9 @@ def main() -> int:
         per_iter[phase] = _solver_phase(phase, nls, engine, dev)
     per_iter["prior"] = _prior_phase(dev)
 
+    # 13-15. the incremental solvers, in a child process of their own
+    per_iter.update(_incremental_child())
+
     print(json.dumps({"main_path": {
         "metric": "manhattan3500_gn_iters_per_sec", "value": main["iters_per_sec"],
         "chi2_final": main["chi2_final"], "chi2_ok": True, "card": smi}}))
@@ -434,9 +529,49 @@ def main() -> int:
     return 0
 
 
+def _incremental_child() -> dict:
+    """Phases 13-15 in a child process (``chip_smoke.py --incremental``), so
+    that their one-thread BLAS and OpenMP leave the earlier phases' threads
+    as they were.  Passes the child's phase lines through and returns its
+    launches per step by phase."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--incremental"],
+                         stdout=subprocess.PIPE, text=True, timeout=900)
+    lines = out.stdout.splitlines()
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    if out.returncode != 0 or not lines:
+        print(lines[-1] if lines else "", flush=True)
+        raise Failure("incremental")
+    return json.loads(lines[-1])["per_iter"]
+
+
+def incremental_main() -> int:
+    """Phases 13-15 alone (the child of ``main``); prints one line per phase,
+    then ``{"per_iter": {...}}``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[incremental] FAIL: torch.cuda.is_available() is False", flush=True)
+        return 1
+    dev = torch.device("cuda")
+    per_iter = {phase: _incremental_phase(phase, engine, kw, counters, dev)
+                for phase, engine, kw, counters in INC_PHASES}
+    print(json.dumps({"per_iter": per_iter}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    entry = main
+    if sys.argv[1:] == ["--incremental"]:
+        # the incremental solvers' host path is many small LAPACK calls,
+        # which threaded OpenBLAS slows down: one thread, set before the
+        # first import of numpy or torch, as bench.py does
+        os.environ["OPENBLAS_NUM_THREADS"] = "1"
+        os.environ["OMP_NUM_THREADS"] = "1"
+        entry = incremental_main
     try:
-        sys.exit(main())
+        sys.exit(entry())
     except Failure as exc:
         print(f"chip_smoke: phase {exc} failed", file=sys.stderr)
         sys.exit(1)

@@ -76,6 +76,25 @@ def pose_pose_error(x0: torch.Tensor, x1: torch.Tensor, meas: torch.Tensor) -> t
     return torch.cat([err[..., :2], clamp_angular_error_2pi(err[..., 2:3])], -1)
 
 
+def pose_landmark_xy_error(x0: torch.Tensor, lm: torch.Tensor, meas: torch.Tensor) -> torch.Tensor:
+    """Residual of an SE(2) pose->landmark XY observation: ``z - h`` with h
+    the landmark in the observing pose's frame (CEdgePoseLandmark2D,
+    SE2_Types.h:340+)."""
+    de, dn = lm[..., 0] - x0[..., 0], lm[..., 1] - x0[..., 1]
+    c, s = torch.cos(x0[..., 2]), torch.sin(x0[..., 2])
+    return meas - torch.stack([c * de + s * dn, -s * de + c * dn], -1)
+
+
+def pose_landmark_rb_error(x0: torch.Tensor, lm: torch.Tensor, meas: torch.Tensor) -> torch.Tensor:
+    """Residual of an SE(2) pose->landmark range-bearing edge (LANDMARK2:RB),
+    with the angular fixup on the bearing."""
+    de, dn = lm[..., 0] - x0[..., 0], lm[..., 1] - x0[..., 1]
+    rng = torch.sqrt(de * de + dn * dn)
+    brg = torch.atan2(dn, de) - x0[..., 2]
+    err = meas - torch.stack([rng, brg], -1)
+    return torch.stack([err[..., 0], clamp_angular_error_2pi(err[..., 1])], -1)
+
+
 def plus(state: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """Vertex retraction for SE(2) poses: addition + angle clamp."""
     out = state + delta

@@ -116,6 +116,10 @@ class GraphSystem:
         t, i = self.vertex_index[vid]
         return self._vstates[t][i]
 
+    def set_vertex_state(self, vid: int, state) -> None:
+        t, i = self.vertex_index[vid]
+        self._vstates[t][i] = np.asarray(state, dtype=np.float64).reshape(-1)
+
     def add_edge(
         self,
         type_name: str,
@@ -185,10 +189,13 @@ class GraphSystem:
     def state_dim(self) -> int:
         return self._layout()[1]
 
-    def update_states(self, new_states: Dict[str, torch.Tensor]) -> None:
-        """Write device states (after an optimize) back into the host pools."""
+    def update_states(self, new_states) -> None:
+        """Write states (tensors on any device, or NumPy arrays) back into
+        the host pools."""
         for t, arr in new_states.items():
-            arr = arr.detach().cpu().numpy()
+            if isinstance(arr, torch.Tensor):
+                arr = arr.detach().cpu().numpy()
+            arr = np.asarray(arr, dtype=np.float64)
             lst = self._vstates[t]
             for i in range(len(lst)):
                 lst[i] = arr[i].copy()

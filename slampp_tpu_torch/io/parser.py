@@ -1,10 +1,12 @@
 """g2o / TORO / SLAM++ dataset parser and parse loop (counterpart of
 ``slampp_tpu/io/parser.py``).
 
-``parse_tokens`` and ``parse_file`` are NumPy copies of the JAX package's
-(token-alias table and storage conversions of ParsePrimitives.h).  The port's
-``build_system`` takes the SE(2) pose-graph records; any other record kind
-raises ``ValueError`` naming the kind until its model is ported.
+``parse_tokens``, ``parse_file`` and ``detect_problem`` are NumPy copies of
+the JAX package's (token-alias table and storage conversions of
+ParsePrimitives.h).  The port's ``build_system`` takes the SE(2) records
+(odometry, XY and range-bearing landmark observations) and consistency
+markers, with the JAX package's incremental hooks; a record kind whose model
+is not ported yet raises ``ValueError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -243,23 +245,91 @@ def parse_file(path: str, max_lines: Optional[int] = None) -> List[ParsedRecord]
     return out
 
 
-def build_system(records: Iterable[ParsedRecord], system=None):
-    """Feed parsed SE(2) records through the parse loop into a GraphSystem.
+def detect_problem(records: Iterable[ParsedRecord]) -> str:
+    """Auto-detect the problem type from (peeked) records.
 
+    Reference analog: TDatasetPeeker (slam_app/Main.h:830, Main.cpp:152-196)
+    which peek-parses the first 1000 lines.
+    """
+    kinds = {r.kind for r in records}
+    if kinds & {"edge_spheron_xyz", "vertex_spheron"}:
+        return "spheron"
+    if kinds & {"edge_rocv_range", "edge_rocv_dt", "vertex_posvel"}:
+        return "rocv"
+    if kinds & {"edge_p2sc"}:
+        return "ba_stereo"
+    if kinds & {"edge_p2ci", "vertex_intrinsics"}:
+        return "ba_intrinsics"
+    if kinds & {"edge_p2c", "vertex_cam"}:
+        return "ba"
+    if kinds & {"landmark3_xyz"}:
+        return "se3_landmark"
+    if kinds & {"edge3", "vertex3"}:
+        return "se3"
+    if kinds & {"landmark2_xy", "landmark2_rb"}:
+        return "se2_landmark"
+    return "se2"
+
+
+# record kinds whose models are not ported yet -> their ROADMAP.md queue 1 item
+_NOT_PORTED = {
+    **dict.fromkeys(("edge3", "landmark3_xyz"), "item 5 (SE(3))"),
+    **dict.fromkeys(("vertex_xyz", "vertex_cam", "vertex_scam", "vertex_intrinsics",
+                     "edge_p2c", "edge_p2ci", "edge_p2sc"), "item 6 (BA)"),
+    **dict.fromkeys(("vertex_spheron", "edge_spheron_xyz", "vertex_posvel", "vertex_rocv_lm",
+                     "rocv_transmitter_uf", "edge_rocv_dt", "edge_rocv_range"),
+                    "item 10 (Sim(3), ROCV and Spheron)"),
+}
+
+# SE(2) record kind -> (edge type, initializers attribute of models.se2)
+_SE2_EDGES = {
+    "edge2": ("edge_pose2d", "POSE_POSE_INITIALIZERS"),
+    "landmark2_xy": ("edge_pose_landmark2d_xy", "POSE_LANDMARK_XY_INITIALIZERS"),
+    "landmark2_rb": ("edge_pose_landmark2d_rb", "POSE_LANDMARK_RB_INITIALIZERS"),
+}
+
+
+def build_system(
+    records: Iterable[ParsedRecord],
+    problem: Optional[str] = None,
+    system=None,
+    on_edge=None,
+    on_marker=None,
+):
+    """Feed parsed records through the parse loop into a GraphSystem, in the
+    JAX package's argument order.
+
+    ``on_edge(system, n_edges)`` is the incremental-solve hook (the reference
+    calls solver.Incremental_Step per appended edge, ParseLoop.h:188-199);
+    ``on_marker(system)`` fires at CONSISTENCY_MARKER records.  ``problem``
+    is accepted for the JAX package's signature: there it only tells BA
+    vertex lines from pose-graph ones, and the port takes no BA records.
     Pose-graph problems ignore VERTEX ground-truth lines
     (CIgnoreAllVertexTraits, Solve2DImpl.cpp:50) and initialize vertices by
-    composing measurements.  Returns the populated system."""
+    composing measurements.  A record whose model is not ported raises
+    ``ValueError`` naming its ROADMAP.md item.  Returns the populated system."""
     from slampp_tpu_torch.graph.system import GraphSystem
     from slampp_tpu_torch.models import se2 as m_se2
 
+    del problem
     if system is None:
         system = GraphSystem()
     for rec in records:
-        if rec.kind == "vertex2":
+        k = rec.kind
+        if k == "marker":
+            if on_marker is not None:
+                on_marker(system)
             continue
-        if rec.kind != "edge2":
-            raise ValueError(f"unhandled record kind {rec.kind!r} (not ported yet)")
-        system.add_edge(
-            "edge_pose2d", rec.ids, rec.values, rec.info, m_se2.POSE_POSE_INITIALIZERS
-        )
+        if k in ("vertex2", "vertex3", "equiv", "phase"):
+            # ground truth of pose problems, data-association hints and
+            # ROCV phase delimiters: bookkeeping only, as in the JAX package
+            continue
+        if k not in _SE2_EDGES:
+            item = _NOT_PORTED.get(k)
+            raise ValueError(f"unhandled record kind {k!r}" + (
+                f": its model is not ported yet (ROADMAP.md queue 1 {item})" if item else ""))
+        etype, inits = _SE2_EDGES[k]
+        system.add_edge(etype, rec.ids, rec.values, rec.info, getattr(m_se2, inits))
+        if on_edge is not None:
+            on_edge(system, system.n_edges)
     return system

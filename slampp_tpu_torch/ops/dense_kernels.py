@@ -17,7 +17,9 @@ of the solver; the JAX package sent f64 to its lax reference only because
 f64 is emulated on a TPU.
 
 ``launches`` counts kernel launches per public function, so that a run can
-show its main path went through the kernels; ``reset_launches`` zeroes it.
+show its main path went through the kernels, and ``launch_shapes`` holds
+the distinct (function, K, M, S, dtype) launched (S is None for the
+Cholesky); ``reset_launches`` clears both.
 """
 
 from __future__ import annotations
@@ -29,11 +31,13 @@ import torch
 PB = 8  # the callers' padding grid: M is a multiple of PB
 
 launches = {"chol_batched": 0, "trsm_lower_batched": 0, "trsm_lower_t_batched": 0}
+launch_shapes: set = set()
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    launch_shapes.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +135,9 @@ def _cuda_args(name: str, *ts: torch.Tensor):
     return _SUFFIX[A.dtype]
 
 
-def _launch(name: str, symbol: str, out: torch.Tensor, *args) -> None:
+def _launch(name: str, symbol: str, out: torch.Tensor, shape: tuple, *args) -> None:
+    """Launch ``symbol`` and count it under ``name``; ``shape`` is the call's
+    (K, M, S)."""
     from slampp_tpu_torch.ops import _cuda
 
     lib = _cuda.load()
@@ -139,6 +145,7 @@ def _launch(name: str, symbol: str, out: torch.Tensor, *args) -> None:
         stream = torch.cuda.current_stream(out.device).cuda_stream
         _cuda.check(lib, getattr(lib, symbol)(*args, stream), name)
     launches[name] += 1
+    launch_shapes.add((name, *shape, str(out.dtype).split(".")[1]))
 
 
 def chol_batched(A: torch.Tensor, clamp: float = 1e-8) -> torch.Tensor:
@@ -150,7 +157,7 @@ def chol_batched(A: torch.Tensor, clamp: float = 1e-8) -> torch.Tensor:
     K, M, _ = A.shape
     out = torch.empty_like(A)
     if K:
-        _launch("chol_batched", f"slampp_chol_{sfx}", out,
+        _launch("chol_batched", f"slampp_chol_{sfx}", out, (K, M, None),
                 A.data_ptr(), out.data_ptr(), K, M, float(clamp))
     return out
 
@@ -174,7 +181,7 @@ def _trsm(name: str, kind: str, L: torch.Tensor, B: torch.Tensor) -> torch.Tenso
     K, M, _ = L.shape
     out = torch.empty_like(B)
     if K:
-        _launch(name, f"slampp_trsm_{kind}_{sfx}", out,
+        _launch(name, f"slampp_trsm_{kind}_{sfx}", out, (K, M, B.shape[2]),
                 L.data_ptr(), B.data_ptr(), out.data_ptr(), K, M, B.shape[2])
     return out
 

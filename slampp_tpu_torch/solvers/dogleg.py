@@ -15,6 +15,7 @@ import torch
 
 from slampp_tpu_torch.core import assembly
 from slampp_tpu_torch.graph.system import GraphArrays, GraphSystem
+from slampp_tpu_torch.graph.types import get_vertex_type
 from slampp_tpu_torch.linear.dense import solve_spd
 from slampp_tpu_torch.solvers.lm import SCHUR_NOT_PORTED, warn_not_positive_definite
 from slampp_tpu_torch.utils.device import require_device
@@ -50,12 +51,14 @@ def _dogleg_step(graph: GraphArrays, delta: float, relin_threshold: float = 0.0)
 
 class DoglegSolver:
     """Batch dogleg.  ``engine``: "auto", "dense" or "v3" (the partitioned
-    engine with ``refine_iters=2``).  "auto" is dense: the JAX package
-    takes its sparse Schur engine there only on landmark graphs, and the
-    port has no landmark types yet (ROADMAP.md queue 1 item 6).  ``pad`` as
+    engine with ``refine_iters=2``).  "auto" is dense, except on a landmark
+    graph of ``SPARSE_SCHUR_THRESHOLD`` vertices or more, where the JAX
+    package takes its sparse Schur engine: there ``optimize`` raises, as
+    that engine is not ported yet (ROADMAP.md queue 1 item 6).  ``pad`` as
     in :class:`~slampp_tpu_torch.solvers.lm.LevenbergMarquardtSolver`."""
 
     name = "lambda_dl"
+    SPARSE_SCHUR_THRESHOLD = 1500  # the JAX package's SLAMPP_SPARSE_SCHUR_THRESHOLD default
 
     def __init__(
         self,
@@ -95,6 +98,9 @@ class DoglegSolver:
         require_device(self.device, "DoglegSolver")
         if self.system.n_edges == 0:
             return 0
+        if (self.engine == "auto" and self.system.n_vertices >= self.SPARSE_SCHUR_THRESHOLD
+                and any(get_vertex_type(t).is_landmark for t in self.system.vertex_type_names)):
+            raise NotImplementedError(SCHUR_NOT_PORTED.format("DoglegSolver"))
         graph = self.system.snapshot(self.device)
         last_error = float(assembly.graph_chi2(graph))
         applied = 0

@@ -116,11 +116,64 @@ def jax_solver_reference(n_poses, nls, engine=None, max_iters=5, min_dx=0.01):
     return float(solver.chi2()), int(applied)
 
 
+def jax_incremental(n_poses, engine, seed=0, loop_prob=0.1, live_engine=None, **kw):
+    """The JAX package's incremental solver ("fastl", "windowed" or
+    "every-n") streamed over the seed-``seed`` Manhattan graph as the
+    port's ``apps/incremental.run_incremental`` drives its own: every-vertex
+    cadence unless ``kw`` says otherwise, one ``incremental_step`` per edge
+    from the parser's ``on_edge`` hook, then ``refresh_frozen``.
+    ``live_engine`` sets the windowed solver's SLAMPP_INC_LIVE_ENGINE for
+    its construction.  Returns the solver."""
+    from slampp_tpu.graph.system import GraphSystem
+    from slampp_tpu.io.datasets import make_manhattan
+    from slampp_tpu.io.parser import build_system, parse_file
+    from slampp_tpu.solvers import IncrementalSolver
+    from slampp_tpu.solvers.fastl import FastLSolver
+    from slampp_tpu.solvers.incremental_windowed import WindowedIncrementalSolver
+
+    cls = {"fastl": FastLSolver, "windowed": WindowedIncrementalSolver,
+           "every-n": IncrementalSolver}[engine]
+    text, _ = make_manhattan(n_poses=n_poses, loop_prob=loop_prob, seed=seed)
+    system = GraphSystem()
+    saved = os.environ.get("SLAMPP_INC_LIVE_ENGINE")
+    if live_engine is not None:
+        os.environ["SLAMPP_INC_LIVE_ENGINE"] = live_engine
+    try:
+        inc = cls(system, **{"solve_period": 1, "require_loop_closure": False, **kw})
+    finally:
+        if live_engine is not None:
+            if saved is None:
+                del os.environ["SLAMPP_INC_LIVE_ENGINE"]
+            else:
+                os.environ["SLAMPP_INC_LIVE_ENGINE"] = saved
+    _with_text_file(text, lambda p: build_system(
+        parse_file(p), problem="se2", system=system,
+        on_edge=lambda s, n: inc.incremental_step()))
+    if hasattr(inc, "refresh_frozen"):
+        inc.refresh_frozen()
+    return inc
+
+
+def jax_incremental_reference(n_poses, engine, **kw):
+    """chip_smoke.py's reference of one incremental phase: the streamed
+    chi2, the counters, ``optimize()``'s return and the chi2 after it."""
+    inc = jax_incremental(n_poses, engine, **kw)
+    out = {"chi2_stream": float(inc.chi2())}
+    out.update({k: getattr(inc, k) for k in ("n_solves", "n_freezes", "n_refreezes", "n_relin")
+                if hasattr(inc, k)})
+    out["optimize_return"] = int(inc.optimize())
+    out["chi2_final"] = float(inc.chi2())
+    return out
+
+
 if __name__ == "__main__":
     # The JAX package's reference values for chip_smoke.py's solver phases,
     # on the CPU, with the port's chain-mode configuration (separator through
     # the dense kernels):
     #   python tests/_torch_jax_util.py [n_poses]
+    # and for its incremental phases (fastl and windowed-v3 at 800 poses,
+    # every-n at 500; windowed-v3 takes minutes of JAX compiles):
+    #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --incremental
     import json
     import sys
 
@@ -131,6 +184,14 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     import slampp_tpu  # noqa: F401  (x64 at import)
 
+    if "--incremental" in sys.argv:
+        for phase, n, engine, kw in (
+                ("fastl", 800, "fastl", {}),
+                ("every-n", 500, "every-n", {"solve_period": 10, "max_iterations": 3}),
+                ("windowed-v3", 800, "windowed", {"live_engine": "v3"})):
+            print(json.dumps({"phase": phase, "n_poses": n,
+                              **jax_incremental_reference(n, engine, **kw)}), flush=True)
+        sys.exit(0)
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 3500
     for phase, nls, engine in (("gn", "lambda", None), ("lm", "lambda-lm", None),
                                ("lm-v3", "lambda-lm", "v3"), ("dl", "lambda-dl", None),
