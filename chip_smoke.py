@@ -60,8 +60,30 @@ the run with a non-zero exit code and no result line:
                            all three kernels launched in float64;
               every-n      IncrementalSolver on manhattan500, solve_period 10,
                            3 iterations: chi2 within 1e-6, the same solves.
+  (after prior, before the incremental child)
+  native      NativeBlockSolver on manhattan3500, 5 chained f64 GN
+              iterations (apps/manhattan.run_native), each twice from the
+              same start: v1 at panel 8 eager, v2 at panels 1 and 8 eager
+              and as optimize_fused's CUDA graph.  chi2 within 1e-6 of the
+              JAX package's (JAX_REF), the graph's states equal to the eager
+              run's within 1e-12, no dense-kernel launch;
+  marginals   manhattan3500 after 5 fused GN iterations (v2, panel 8): the
+              dense update_batch (H 10500 x 10500 f64 on the card) against
+              the recursive update_batch_sparse (v2 factor, block Takahashi;
+              apps/manhattan.run_marginals): every block within 1e-5 of
+              the dense one, relative to its largest entry (lambda's
+              condition number ~7.6e12 sets the scale; TOL_MARG), and
+              vertex 0's block and the sum of the block traces within 1e-6
+              of the JAX package's dense ones;
+  eigen       the largest and the smallest eigenvalue of manhattan3500's
+              lambda (80 Lanczos iterations each; the smallest by shift-
+              invert through the f64 v3 factorization) and the condition
+              number (apps/manhattan.run_eigen): within 5e-4 (largest) and
+              1e-4 (smallest) of the JAX package's, all three kernels
+              launched, in float64 only; the kernel phase checks and times
+              each of its f64 shapes.
 Each phase's launches are counted from zero over that phase alone.  The
-whole script takes about three minutes on an H100, the kernels' build
+whole script takes about five minutes on an H100, the kernels' build
 included.
 
 Then the kernel summary (JSON), the card's name and power limit, and the
@@ -104,7 +126,38 @@ JAX_REF = {
                     "chi2_final": 41.08053263804514},
     "every-n": {"n_poses": 500, "chi2_stream": 26.09545575608572, "n_solves": 50,
                 "optimize_return": 63, "chi2_final": 26.09545575608572},
+    # the native, marginals and eigen phases, by
+    #   python tests/_torch_jax_util.py --native 3500
+    # native: chi2 after 5 chained f64 GN iterations; marginals: the dense
+    # update_batch after 5 fused GN iterations (v2, panel 8), vertex 0's
+    # block and the sum of the block traces; eigen: the initial lambda's
+    # extremal eigenvalues, 80 Lanczos iterations each
+    "native": {"v1-p8": 404.5038446353005, "v2-p1": 404.50384463530065,
+               "v2-p8": 404.5038446353007},
+    "marginals": {
+        "block0": [[0.9999999999968521, 5.014725793416286e-15, 5.043837065094325e-10],
+                   [5.0368987484116464e-15, 1.0000000000003504, -1.6025789208721784e-10],
+                   [5.04388019078567e-10, -1.602586803057551e-10, 0.9999999298083165]],
+        "trace_sum": 39483164.53090722,
+    },
+    "eigen": {"lmax": 183974.89469745193, "lmin": 2.418037302982734e-08,
+              "cond": 7608439062148.149},
 }
+# the native phase: (run, engine, panel, as optimize_fused's CUDA graph)
+NATIVE_RUNS = (("v1-p8", "v1", 8, False), ("v2-p1", "v2", 1, False), ("v2-p1", "v2", 1, True),
+               ("v2-p8", "v2", 8, False), ("v2-p8", "v2", 8, True))
+TOL_NATIVE, TOL_GRAPH = 1e-6, 1e-12
+# sparse against dense marginals (largest block difference over the block's
+# largest entry), vertex 0's block and the trace sum against JAX's, and the
+# eigenvalues against JAX's (tests/test_aux.py:152-160).  The CPU tests hold
+# sparse to dense at 1e-7 on 82 poses.  manhattan3500's lambda has condition
+# number ~7.6e12 (the eigen phase), so cond * eps ~ 8e-4 bounds what f64 can
+# promise; the two algorithms differ there by 2.6e-7 on a CPU and 1.1e-6 on
+# the H100, by as much with exact per-segment sums in place of the prefix
+# sums, and the dense result moves 1.5e-7 when the GN states move by their
+# rounding (scripts/marginals_segsum_ab.py): the bound is 1e-5
+TOL_MARG, TOL_MARG_REF = 1e-5, 1e-6
+TOL_EIG_MAX, TOL_EIG_MIN = 5e-4, 1e-4
 # the incremental phases: (engine, solver keywords, counters that must equal
 # the JAX package's); chi2 within TOL_SOLVER_F64 relative
 INC_PHASES = (
@@ -284,6 +337,16 @@ def _check_kernels(dev):
         ("trsm_lower_t_batched", 1, 80, 8, (), (f64,), timed64),
         ("trsm_lower_t_batched", 6, 96, 8, (), (f64,), timed64),
         ("trsm_lower_t_batched", 13, 192, 8, (), (f64,), timed64),
+        # the eigen phase's f64 shapes (manhattan3500, target 64, through
+        # SparseSystemOperator.solve_shifted): part frames K = 55, M = 192
+        # (factor, S = 48; solves, S = 8) and the separator M = 488 (its
+        # Cholesky is timed in f64 above)
+        ("chol_batched", 55, 192, None, (), (f64,), timed64),
+        ("trsm_lower_batched", 55, 192, 48, (), (f64,), timed64),
+        ("trsm_lower_batched", 55, 192, 8, (), (f64,), timed64),
+        ("trsm_lower_batched", 1, 488, 8, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 55, 192, 8, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 1, 488, 8, (), (f64,), timed64),
     ]
     main_shape = (1, 488, f32)
     plain = {"chol_batched": dk.chol_batched_plain,
@@ -414,6 +477,77 @@ def _prior_phase(dev):
     return launches
 
 
+def _native_phase(dev):
+    """The native engines at manhattan3500 (apps/manhattan.run_native), each
+    run's launches counted from zero; the graph runs against the eager run
+    of the same engine and panel."""
+    import torch
+
+    from slampp_tpu_torch.apps import manhattan
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    eager = {}
+    for name, engine, panel, fused in NATIVE_RUNS:
+        t0 = time.perf_counter()
+        dk.reset_launches()
+        res = manhattan.run_native(3500, dev, engine, panel, fused=fused)
+        launches = dict(dk.launches)
+        states = res.pop("states")
+        expected = JAX_REF["native"][name]
+        rel = abs(res["chi2_final"] - expected) / expected
+        ok = (rel <= TOL_NATIVE and not any(launches.values())
+              and all(bool(torch.isfinite(s).all()) for s in states.values())
+              and states["pose2d"].shape == (3500, 3))
+        info = {}
+        if fused:
+            ref = eager[name]
+            info["graph_vs_eager"] = max(float((states[t] - ref[t]).abs().max()) for t in ref)
+            ok = ok and info["graph_vs_eager"] <= TOL_GRAPH
+        else:
+            eager[name] = states
+        _line(f"native-{name}{'-graph' if fused else ''}", ok, time.perf_counter() - t0,
+              expected=expected, rel_err=rel, tol=TOL_NATIVE, tol_graph=TOL_GRAPH, **info, **res)
+
+
+def _marginals_phase(dev):
+    import numpy as np
+
+    from slampp_tpu_torch.apps import manhattan
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    ref = JAX_REF["marginals"]
+    t0 = time.perf_counter()
+    dk.reset_launches()
+    res = manhattan.run_marginals(3500, dev)
+    b0, rb0 = np.asarray(res["block0"]), np.asarray(ref["block0"])
+    rel = {"block0": float(np.abs(b0 - rb0).max() / np.abs(rb0).max()),
+           "trace_sum": abs(res["trace_sum"] - ref["trace_sum"]) / ref["trace_sum"]}
+    ok = (res["same_vertices"] and res["max_rel_block_diff"] <= TOL_MARG
+          and all(v <= TOL_MARG_REF for v in rel.values()) and not any(dk.launches.values()))
+    _line("marginals", ok, time.perf_counter() - t0, rel_err_jax=rel, tol=TOL_MARG,
+          tol_jax=TOL_MARG_REF, launches=dict(dk.launches), **res)
+
+
+def _eigen_phase(dev):
+    """The eigenvalue analysis at manhattan3500; returns its launches per
+    solve_shifted that reuses the factor."""
+    from slampp_tpu_torch.apps import manhattan
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    ref = JAX_REF["eigen"]
+    t0 = time.perf_counter()
+    dk.reset_launches()
+    res = manhattan.run_eigen(3500, dev)
+    launches = dict(dk.launches)
+    rel = {k: abs(res[k] - ref[k]) / abs(ref[k]) for k in ("lmax", "lmin")}
+    dtypes = {s[4] for s in res["kernel_shapes"]}
+    ok = (rel["lmax"] <= TOL_EIG_MAX and rel["lmin"] <= TOL_EIG_MIN
+          and all(v > 0 for v in res["launches"].values()) and dtypes == {"float64"})
+    _line("eigen", ok, time.perf_counter() - t0, rel_err=rel, tol_max=TOL_EIG_MAX,
+          tol_min=TOL_EIG_MIN, reference=ref, launches_phase=launches, **res)
+    return res["solve_shifted"]["solve"]["launches"]
+
+
 def _incremental_phase(phase, engine, kw, counters, dev):
     """One incremental solver streamed over the Manhattan graph and then
     optimized, against the JAX package's run; its kernel launches counted
@@ -509,6 +643,11 @@ def main() -> int:
     for phase, nls, engine in SOLVER_PHASES:
         per_iter[phase] = _solver_phase(phase, nls, engine, dev)
     per_iter["prior"] = _prior_phase(dev)
+
+    # the native engines, the marginals and the eigenvalue analysis
+    _native_phase(dev)
+    _marginals_phase(dev)
+    per_iter["eigen"] = _eigen_phase(dev)
 
     # 13-15. the incremental solvers, in a child process of their own
     per_iter.update(_incremental_child())

@@ -16,6 +16,20 @@ The batch solvers as the JAX package's CLI builds them for a pose graph
     python -m slampp_tpu_torch.apps.manhattan [n_poses] [device] --solver lambda|lambda-lm|lambda-dl [--engine v3] [--profile]
 
 prints ``run_solver``'s result, or with ``--profile`` ``profile_solver``'s.
+
+The native sparse engines (NativeBlockSolver: v1 scatter-add levels or v2
+level windows, ``panel`` blocks per supernodal panel), K chained f64 GN
+iterations, eagerly or (v2) as ``optimize_fused``'s CUDA graph; the
+marginal covariances (dense ``update_batch`` against the recursive sparse
+``update_batch_sparse``); the eigenvalue analysis (largest, smallest by
+shift-invert through the v3 factorization, condition number):
+
+    python -m slampp_tpu_torch.apps.manhattan [n_poses] [device] --native v1|v2 [--panel P] [--fused] [--mixed] [--profile]
+    python -m slampp_tpu_torch.apps.manhattan [n_poses] [device] --marginals
+    python -m slampp_tpu_torch.apps.manhattan [n_poses] [device] --eigen
+
+print ``run_native`` (or ``profile_native``), ``run_marginals`` and
+``run_eigen``'s results.
 """
 
 from __future__ import annotations
@@ -30,12 +44,15 @@ import time
 import numpy as np
 import torch
 
-from slampp_tpu_torch.core.assembly import apply_update, assemble_dense
+from slampp_tpu_torch.core.assembly import apply_update, assemble_dense, graph_chi2
+from slampp_tpu_torch.eval import eigenvalues as eig
 from slampp_tpu_torch.io.datasets import make_manhattan
 from slampp_tpu_torch.io.parser import build_system, parse_file
 from slampp_tpu_torch.graph.types import get_vertex_type
 from slampp_tpu_torch.linear.dense import solve_spd
+from slampp_tpu_torch.linear.native import NativeBlockSolver
 from slampp_tpu_torch.linear.partitioned import PartitionedSolver
+from slampp_tpu_torch.marginals import MarginalCovariance
 from slampp_tpu_torch.ops import dense_kernels as dk
 from slampp_tpu_torch.solvers import DoglegSolver, GaussNewtonSolver, LevenbergMarquardtSolver
 
@@ -312,6 +329,165 @@ def run_prior(n_poses: int, device) -> dict:
     }
 
 
+# ------------------------------------------------------- native sparse engines
+
+
+def _native_iterations(ns: NativeBlockSolver, graph, n_iters: int, fused: bool):
+    """``n_iters`` chained GN iterations with no early exit: (states, chi2
+    before, chi2 after), the chi2 as 0-d tensors.  ``fused`` is
+    ``optimize_fused`` (a CUDA graph on the card); otherwise ``gn_step``
+    chained eagerly, as the JAX package's v1 has no fused form."""
+    if fused:
+        states, _, chi0, chi2 = ns.optimize_fused(graph, n_iters)
+        return states, chi0, chi2
+    states, chi0 = graph.states, None
+    for _ in range(n_iters):
+        states, _, c = ns.gn_step(graph.replace_states(states))
+        chi0 = c if chi0 is None else chi0
+    return states, chi0, graph_chi2(graph.replace_states(states))
+
+
+def run_native(n_poses: int, device, engine: str = "v2", panel: int = 1, mixed: bool = False,
+               fused: bool = False, n_iters: int = 5) -> dict:
+    """``n_iters`` GN iterations of NativeBlockSolver on the Manhattan graph,
+    twice from the same start: the first call builds what the solver caches
+    (on the card, the CUDA graph of one iteration), the second is timed from
+    a synced device to its host read.  Returns chi2 before and after (of the
+    first call), seconds per iteration (second call), the plan's level
+    count and panel size, the CUDA graph's node count and capture time when
+    ``fused`` on the card, the dense-kernel launches (the native engines
+    make none) and the final states."""
+    device = torch.device(device)
+    system = manhattan_system(n_poses)
+    ns = NativeBlockSolver(system, panel=panel, mixed_precision=mixed, engine=engine,
+                           device=device)
+    t0 = time.perf_counter()
+    ns.symbolic()
+    t_symbolic = time.perf_counter() - t0
+    graph = system.snapshot(device)
+    launches0 = dict(dk.launches)
+    t0 = time.perf_counter()
+    states, chi0, chi2 = _native_iterations(ns, graph, n_iters, fused)
+    chi0, chi2 = float(chi0), float(chi2)
+    t_first = time.perf_counter() - t0
+    _sync(device)
+    t0 = time.perf_counter()
+    float(_native_iterations(ns, graph, n_iters, fused)[2])
+    t_call = time.perf_counter() - t0
+    out = {
+        "n_poses": n_poses, "device": str(device), "engine": engine, "panel": panel,
+        "P": ns.block_plan.P, "mixed": mixed, "fused": fused, "n_iters": n_iters,
+        "levels": ns.n_levels, "nnzb": ns.block_plan.nnzb,
+        "chi2_init": chi0, "chi2_final": chi2, "t_symbolic_s": t_symbolic,
+        "t_first_s": t_first, "t_call_s": t_call, "s_per_iter": t_call / n_iters,
+        "launches": {k: v - launches0[k] for k, v in dk.launches.items()},
+        "states": states,
+    }
+    if fused and device.type == "cuda":
+        step = ns.captured_step(graph)
+        out.update(graph_nodes=step.nodes, capture_s=step.capture_s)
+    return out
+
+
+def profile_native(n_poses: int, device, engine: str = "v2", panel: int = 1,
+                   mixed: bool = False, fused: bool = False, n_iters: int = 1,
+                   top: int = 15) -> dict:
+    """Where the time of one warm call of ``n_iters`` native GN iterations
+    goes (``_profiled``), after a first call that builds the plan and, when
+    ``fused`` on the card, the CUDA graph."""
+    device = torch.device(device)
+    system = manhattan_system(n_poses)
+    ns = NativeBlockSolver(system, panel=panel, mixed_precision=mixed, engine=engine,
+                           device=device)
+    graph = system.snapshot(device)
+    float(_native_iterations(ns, graph, n_iters, fused)[2])
+    out = {"n_poses": n_poses, "device": str(device), "engine": engine, "panel": panel,
+           "fused": fused, "n_iters": n_iters, "levels": ns.n_levels}
+    out.update(_profiled(lambda: float(_native_iterations(ns, graph, n_iters, fused)[2]),
+                         device, top))
+    return out
+
+
+def run_marginals(n_poses: int, device) -> dict:
+    """The Manhattan graph brought near its optimum by 5 fused GN iterations
+    (v2 engine, panel 8), then its block-diagonal marginal covariances twice:
+    ``update_batch`` (dense H on the device, Cholesky, two triangular solves)
+    and ``update_batch_sparse`` (v2 factor at panel 1, block Takahashi).  Returns
+    the seconds of each, the largest relative difference of a block (over
+    the dense block's largest entry), vertex 0's block and the sum of the
+    block traces from each, and the chi2 at the linearization point."""
+    device = torch.device(device)
+    system = manhattan_system(n_poses)
+    ns = NativeBlockSolver(system, panel=8, engine="v2", device=device)
+    states, _, chi2 = _native_iterations(ns, system.snapshot(device), 5, True)
+    system.update_states(states)
+    dense, sparse = MarginalCovariance(system, device), MarginalCovariance(system, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    dense.update_batch()
+    t_dense = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sparse.update_batch_sparse()
+    t_sparse = time.perf_counter() - t0
+    rel = max(float(np.abs(sparse.block_diag[v] - b).max() / np.abs(b).max())
+              for v, b in dense.block_diag.items())
+    return {
+        "n_poses": n_poses, "device": str(device), "chi2": float(chi2),
+        "n_blocks": len(dense.block_diag), "same_vertices": set(sparse.block_diag) == set(dense.block_diag),
+        "t_dense_s": t_dense, "t_sparse_s": t_sparse, "max_rel_block_diff": rel,
+        "block0": dense.block_diag[0].tolist(), "block0_sparse": sparse.block_diag[0].tolist(),
+        "trace_sum": float(sum(np.trace(b) for b in dense.block_diag.values())),
+        "trace_sum_sparse": float(sum(np.trace(b) for b in sparse.block_diag.values())),
+    }
+
+
+def run_eigen(n_poses: int, device, iters: int = 80, target: int = 64) -> dict:
+    """The eigenvalue analysis of the Manhattan graph's lambda at its initial
+    states, through the entry points: ``sparse_largest_eigenvalues`` and
+    ``sparse_smallest_eigenvalues_shift_invert`` (k = 1, ``iters`` Lanczos
+    iterations each; the latter factors through the f64 v3 engine and so
+    launches the three dense kernels), and their ratio, the condition
+    number.  Then, on an operator of its own, one ``solve_shifted`` that
+    factors and one that reuses the factor: their seconds and kernel
+    launches.  Returns the values, the seconds of each call and the kernel
+    launches of the shift-invert call and the distinct kernel shapes it
+    launched."""
+    device = torch.device(device)
+    system = manhattan_system(n_poses)
+    _sync(device)
+    t0 = time.perf_counter()
+    lmax = float(eig.sparse_largest_eigenvalues(system, 1, iters, target, device)[0][0])
+    t_largest = time.perf_counter() - t0
+    launches0 = dict(dk.launches)
+    dk.launch_shapes.clear()
+    t0 = time.perf_counter()
+    lmin = float(eig.sparse_smallest_eigenvalues_shift_invert(system, 1, 0.0, iters, target,
+                                                              device)[0][0])
+    t_smallest = time.perf_counter() - t0
+    launches = {k: v - launches0[k] for k, v in dk.launches.items()}
+    shapes = sorted(dk.launch_shapes, key=lambda s: (s[0], s[1], s[2], s[3] or 0, s[4]))
+
+    op = eig.SparseSystemOperator(system, target, device)
+    x = torch.randn(op.n, generator=torch.Generator(device=device).manual_seed(1),
+                    dtype=torch.float64, device=device)
+    probe = {}
+    for name in ("factor_and_solve", "solve"):
+        before = dict(dk.launches)
+        _sync(device)
+        t0 = time.perf_counter()
+        op.solve_shifted(x, 0.0)
+        _sync(device)
+        probe[name] = {"s": time.perf_counter() - t0,
+                       "launches": {k: v - before[k] for k, v in dk.launches.items()}}
+    return {
+        "n_poses": n_poses, "device": str(device), "n": op.n, "iters": iters,
+        "plan": {"K": op._p.K, "M": op._p.M, "Ms": op._p.Ms, "ch_ok": op._p.ch_ok},
+        "lmax": lmax, "lmin": lmin, "cond": abs(lmax) / max(abs(lmin), 1e-300),
+        "t_largest_s": t_largest, "t_smallest_s": t_smallest,
+        "launches": launches, "kernel_shapes": shapes, "solve_shifted": probe,
+    }
+
+
 def _option(name: str):
     """The value after ``--name`` on the command line, or None."""
     argv = sys.argv[1:]
@@ -320,13 +496,26 @@ def _option(name: str):
 
 if __name__ == "__main__":
     solver_kind, engine_kind = _option("--solver"), _option("--engine")
-    values = {solver_kind, engine_kind}
+    native_kind, panel_size = _option("--native"), _option("--panel")
+    values = {solver_kind, engine_kind, native_kind, panel_size}
     args = [a for a in sys.argv[1:] if not a.startswith("--") and a not in values]
     n = int(args[0]) if args else 3500
     dev = args[1] if len(args) > 1 else "cuda"
     if dev != "cpu" and not torch.cuda.is_available():
         raise RuntimeError(f"no CUDA device is available for {dev!r}; name 'cpu' to run on the CPU")
-    if solver_kind is not None:
+    if native_kind is not None:
+        kw = dict(engine=native_kind, panel=int(panel_size or 1), mixed="--mixed" in sys.argv,
+                  fused="--fused" in sys.argv)
+        if "--profile" in sys.argv:
+            res = profile_native(n, dev, **kw)
+        else:
+            res = run_native(n, dev, **kw)
+            res.pop("states")
+    elif "--marginals" in sys.argv:
+        res = run_marginals(n, dev)
+    elif "--eigen" in sys.argv:
+        res = run_eigen(n, dev)
+    elif solver_kind is not None:
         if "--profile" in sys.argv:
             res = profile_solver(n, dev, solver_kind, engine_kind)
         else:

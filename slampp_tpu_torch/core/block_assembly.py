@@ -1,6 +1,5 @@
 """Block-level lambda assembly (counterpart of
-``slampp_tpu/core/block_assembly.py``), at fine-block granularity (the JAX
-package's ``panel=1``, the only granularity the partitioned solver uses).
+``slampp_tpu/core/block_assembly.py``).
 
 Host half: :func:`build_block_plan` routes every edge's per-slot Hessian
 block and rhs vector to its fine destination, sorts the contribution terms
@@ -10,6 +9,14 @@ NonlinearSolver_Lambda_Base.h:524).  Device half:
 :func:`assemble_blocks_sorted` evaluates the terms per edge type, reduces
 them with gather + sum (no scatter, no atomics) and places the reduced
 blocks with one gather.
+
+Panel (supernodal) mode: ``panel`` consecutive permuted fine blocks are
+amalgamated into one P x P panel (P = panel * bs), so the native engines
+factor a much shallower elimination tree of larger blocks.  Fine permuted
+position q lands in panel ``q // panel`` at scalar offset
+``(q % panel) * bs``; pairs within one panel sit in its diagonal block's
+lower triangle.  ``panel=1`` is plain fine-block granularity (the
+partitioned solver's).
 """
 
 from __future__ import annotations
@@ -40,23 +47,26 @@ class EdgeRouting:
 
 @dataclasses.dataclass
 class BlockPlan:
-    """Routing for one (graph structure, ordering)."""
+    """Routing for one (graph structure, ordering, panel size)."""
 
-    n: int  # fine blocks
-    bs: int  # block size
-    nnzb: int  # fine lower-triangle slots
+    n: int  # panel columns (fine blocks at panel 1)
+    bs: int  # fine block size
+    P: int  # panel scalar size, panel * bs
+    nnzb: int  # panel lower-triangle slots
     routing: Dict[str, EdgeRouting]
-    anchor_diag_slot: int  # diag slot of the unary anchor (or nnzb)
-    anchor_off: int
+    anchor_diag_slot: int  # panel diag slot of the unary anchor (or nnzb)
+    anchor_off: int  # its scalar offset in the panel
     anchor_dim: int
     unary_information: float
-    dx_offsets: torch.Tensor  # (n, bs) global scalar offset per fine scalar
+    dx_offsets: torch.Tensor  # (n, P) global scalar offset per panel scalar (state_dim = unused)
     state_dim: int
+    panel_diag_slots: torch.Tensor  # (n,) diag slot of each panel
+    panel_diag_reg: torch.Tensor  # (n, P) float64 1.0 where the panel scalar is unused
     type_order: Tuple
     asm_grp: GroupedSegments  # over T Hessian terms -> F fine blocks
-    asm_inv_map: torch.Tensor  # (nnzb,) slot -> reduced block (F = zero)
+    asm_inv_map: torch.Tensor  # (nnzb * pn * pn,) fine cell -> reduced block (F = zero)
     rhs_grp: GroupedSegments  # over Tr rhs terms -> Fr fine rows
-    rhs_inv_map: torch.Tensor  # (n,) row -> reduced row (Fr = zero)
+    rhs_inv_map: torch.Tensor  # (n * pn,) fine row -> reduced row (Fr = zero)
 
     def to(self, device) -> "BlockPlan":
         return dataclasses.replace(
@@ -64,6 +74,8 @@ class BlockPlan:
             routing={k: EdgeRouting(r.pair_transpose.to(device), r.pairs)
                      for k, r in self.routing.items()},
             dx_offsets=self.dx_offsets.to(device),
+            panel_diag_slots=self.panel_diag_slots.to(device),
+            panel_diag_reg=self.panel_diag_reg.to(device),
             asm_grp=self.asm_grp.to(device), asm_inv_map=self.asm_inv_map.to(device),
             rhs_grp=self.rhs_grp.to(device), rhs_inv_map=self.rhs_inv_map.to(device),
         )
@@ -102,24 +114,29 @@ def build_block_plan(
     nnzb: int,
     inv_order: np.ndarray,
     block_of_vid: Dict[int, int],
+    panel: int = 1,
 ) -> BlockPlan:
-    """Host: the sorted-assembly plan for a fine slot table.
+    """Host: the sorted-assembly plan for a panel slot table.
 
-    ``slot_of`` maps PERMUTED (i, j), i > j, to the off-diagonal slot;
-    ``diag_slot[p]`` is the diagonal slot of permuted block p;
-    ``block_of_vid`` maps a vertex id to its original block and
-    ``inv_order`` an original block to its permuted position."""
+    ``slot_of`` maps PERMUTED panel pairs (i, j), i > j, to the off-diagonal
+    slot; ``diag_slot[p]`` is the diagonal slot of permuted panel p;
+    ``block_of_vid`` maps a vertex id to its original fine block and
+    ``inv_order`` an original fine block to its permuted fine position."""
     offsets, total = system._layout()
     dims = {get_vertex_type(t).dim for t, _ in system.vertex_index.values()}
     if len(dims) != 1:
         raise ValueError(f"uniform block size required, got dims {dims}")
     bs = dims.pop()
-    n = len(block_of_vid)
+    P = panel * bs
+    n_fine = len(block_of_vid)
+    n_panels = (n_fine + panel - 1) // panel
 
-    # one destination per contribution term, fi * n + fj (fi >= fj), in the
-    # order the device concatenates terms (type, then diag a, then pair k);
-    # SENT marks terms of const vertices, which are dropped
-    SENT = n * n + 1
+    # one destination per contribution term, fi * NF + fj (fi >= fj, fine
+    # permuted positions), in the order the device concatenates terms (type,
+    # then diag a, then pair k); SENT marks terms of const vertices, which
+    # are dropped
+    NF = n_panels * panel
+    SENT = NF * NF + 1
     fine_dests: list = []
     rhs_dests: list = []
     routing: Dict[str, EdgeRouting] = {}
@@ -131,21 +148,21 @@ def build_block_plan(
         ptrans = np.zeros((E, len(pairs)), bool)
         fd_diag = np.full((E, arity), SENT, np.int64)
         fd_pair = np.full((E, len(pairs)), SENT, np.int64)
-        fd_rhs = np.full((E, arity), n, np.int64)
+        fd_rhs = np.full((E, arity), NF, np.int64)
         for e, ev in enumerate(vids):
             locs = [int(inv_order[block_of_vid[v]]) if v in block_of_vid else None
                     for v in ev]
             for s, p in enumerate(locs):
                 if p is not None:
-                    fd_diag[e, s] = p * n + p
+                    fd_diag[e, s] = p * NF + p
                     fd_rhs[e, s] = p
             for k, (a, b) in enumerate(pairs):
                 pa, pb = locs[a], locs[b]
                 if pa is None or pb is None:
                     continue
-                fd_pair[e, k] = max(pa, pb) * n + min(pa, pb)
-                # the lower-triangle slot holds H[max, min]: transpose when
-                # slot a is the column
+                fd_pair[e, k] = max(pa, pb) * NF + min(pa, pb)
+                # the lower-triangle cell holds H[max, min]: transpose when
+                # slot a is the column (within one panel as across panels)
                 ptrans[e, k] = pa < pb
         routing[tname] = EdgeRouting(torch.from_numpy(ptrans), pairs)
         fine_dests += [fd_diag[:, a] for a in range(arity)]
@@ -154,40 +171,51 @@ def build_block_plan(
 
     anchor = system._unary_anchor
     if anchor is not None and anchor in block_of_vid:
-        anchor_slot = int(diag_slot[int(inv_order[block_of_vid[anchor]])])
+        q = int(inv_order[block_of_vid[anchor]])
+        anchor_slot, anchor_off = int(diag_slot[q // panel]), (q % panel) * bs
     else:
-        anchor_slot = nnzb
+        anchor_slot, anchor_off = nnzb, 0
 
-    # un-permutation of the solution
+    # un-permutation of the solution, and the unit regularization of the
+    # unused scalars of a partial last panel
     order = np.empty_like(inv_order)
     order[inv_order] = np.arange(len(inv_order))
     vid_of_block = {b: v for v, b in block_of_vid.items()}
-    dx_off = np.stack(
-        [offsets[vid_of_block[int(order[p])]] + np.arange(bs) for p in range(n)]
-    ) if n else np.zeros((0, bs), np.int64)
+    dx_off = np.full((n_panels, P), total, np.int64)
+    reg = np.ones((n_panels, P))
+    for q in range(n_fine):
+        pan, w = q // panel, (q % panel) * bs
+        dx_off[pan, w : w + bs] = offsets[vid_of_block[int(order[q])]] + np.arange(bs)
+        reg[pan, w : w + bs] = 0.0
 
-    # sorted reduction of the Hessian terms, placed into the slots by one
-    # gather through asm_inv_map
+    # sorted reduction of the Hessian terms, placed into the panel cells by
+    # one gather through asm_inv_map
     uniq, asm_grp = sorted_segments(_cat(fine_dests), SENT)
     ij_of = {int(s_): (int(i_), int(j_)) for (i_, j_), s_ in slot_of.items()}
-    for p in range(n):
-        ij_of.setdefault(int(diag_slot[p]), (p, p))
-    fid = np.array([ij_of[s_][0] * n + ij_of[s_][1] for s_ in range(nnzb)], np.int64)
+    for pan in range(n_panels):
+        ij_of.setdefault(int(diag_slot[pan]), (pan, pan))
+    slot_ij = np.array([ij_of[s_] for s_ in range(nnzb)], np.int64).reshape(nnzb, 2)
+    br = np.arange(panel, dtype=np.int64)
+    fi = slot_ij[:, 0, None, None] * panel + br[None, :, None]
+    fj = slot_ij[:, 1, None, None] * panel + br[None, None, :]
+    fid = (fi * NF + fj).ravel()
 
     # the same over the rhs vectors, keyed by fine row
-    uniq_r, rhs_grp = sorted_segments(_cat(rhs_dests), n)
+    uniq_r, rhs_grp = sorted_segments(_cat(rhs_dests), NF)
 
     return BlockPlan(
-        n=n, bs=bs, nnzb=nnzb, routing=routing,
-        anchor_diag_slot=anchor_slot, anchor_off=0, anchor_dim=bs,
+        n=n_panels, bs=bs, P=P, nnzb=nnzb, routing=routing,
+        anchor_diag_slot=anchor_slot, anchor_off=anchor_off, anchor_dim=bs,
         unary_information=system.unary_information,
-        dx_offsets=torch.from_numpy(dx_off.astype(np.int64)),
+        dx_offsets=torch.from_numpy(dx_off),
         state_dim=total,
+        panel_diag_slots=torch.as_tensor(np.asarray(diag_slot, np.int64)),
+        panel_diag_reg=torch.from_numpy(reg),
         type_order=tuple(system.edge_type_names),
         asm_grp=asm_grp,
         asm_inv_map=torch.from_numpy(inverse_map(uniq, fid)),
         rhs_grp=rhs_grp,
-        rhs_inv_map=torch.from_numpy(inverse_map(uniq_r, np.arange(n, dtype=np.int64))),
+        rhs_inv_map=torch.from_numpy(inverse_map(uniq_r, np.arange(NF, dtype=np.int64))),
     )
 
 
@@ -234,11 +262,12 @@ def _edge_type_terms(graph: GraphArrays, bp: BlockPlan, name: str,
 
 
 def assemble_blocks_sorted(graph: GraphArrays, bp: BlockPlan, hessian_f32: bool = False):
-    """Device: (vals (nnzb+1, bs, bs), rhs (n+1, bs), chi2) — the packed
-    lower-triangular lambda in permuted fine-slot order, g, and chi2.  The
+    """Device: (vals (nnzb+1, P, P), rhs (n+1, P), chi2) — the packed
+    lower-triangular lambda in permuted panel-slot order, g, and chi2.  The
     +1 rows are zero dummies that plan gathers point at.  With
     ``hessian_f32`` the blocks come back float32; rhs and chi2 are float64."""
-    bs = bp.bs
+    bs, P = bp.bs, bp.P
+    pn = P // bs
     chi2 = torch.zeros((), dtype=torch.float64, device=graph.device)
     hchunks, rchunks = [], []
     for name in bp.type_order:
@@ -250,23 +279,31 @@ def assemble_blocks_sorted(graph: GraphArrays, bp: BlockPlan, hessian_f32: bool 
     G = torch.cat(hchunks, 0)  # (T, bs, bs) in term order
     red = grouped_segsum_last(G.reshape(-1, bs * bs).T, bp.asm_grp)  # (bs*bs, F)
     redp = torch.cat([red, red.new_zeros(bs * bs, 1)], -1)
-    vals = redp[:, bp.asm_inv_map].reshape(bs, bs, bp.nnzb).permute(2, 0, 1)
-    vals = torch.cat([vals, vals.new_zeros(1, bs, bs)], 0)
+    vals = (redp[:, bp.asm_inv_map].reshape(bs, bs, bp.nnzb, pn, pn)
+            .permute(2, 3, 0, 4, 1).reshape(bp.nnzb, P, P))
+    vals = torch.cat([vals, vals.new_zeros(1, P, P)], 0)
 
     Gr = torch.cat(rchunks, 0).T  # (bs, Tr)
     red_r = grouped_segsum_last(Gr, bp.rhs_grp)  # (bs, Fr)
     red_rp = torch.cat([red_r, red_r.new_zeros(bs, 1)], -1)
-    rhs = red_rp[:, bp.rhs_inv_map].T
-    rhs = torch.cat([rhs, rhs.new_zeros(1, bs)], 0)
+    rhs = red_rp[:, bp.rhs_inv_map].T.reshape(bp.n, P)
+    rhs = torch.cat([rhs, rhs.new_zeros(1, P)], 0)
 
     if bp.anchor_diag_slot < bp.nnzb:
         idx = bp.anchor_off + torch.arange(bp.anchor_dim, device=vals.device)
         vals[bp.anchor_diag_slot, idx, idx] += bp.unary_information
+    if pn > 1:
+        # unit diagonal on the unused scalars of a partial panel, so that its
+        # Cholesky stays positive definite (their dx solves to 0, dropped)
+        dd = torch.arange(P, device=vals.device)
+        vals[bp.panel_diag_slots[:, None], dd[None, :], dd[None, :]] += (
+            bp.panel_diag_reg.to(vals.dtype))
     return vals, rhs, chi2
 
 
 def scatter_dx(bp: BlockPlan, x: torch.Tensor) -> torch.Tensor:
-    """Un-permute the fine solution (n, bs) into the global dx vector."""
-    dx = x.new_zeros(bp.state_dim)
+    """Un-permute the panel solution (n, P) into the global dx vector;
+    unused panel scalars land in a dropped tail."""
+    dx = x.new_zeros(bp.state_dim + bp.P)
     dx[bp.dx_offsets.reshape(-1)] = x.reshape(-1)
-    return dx
+    return dx[: bp.state_dim]

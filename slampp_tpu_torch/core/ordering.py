@@ -2,17 +2,23 @@
 ``slampp_tpu/core/ordering.py``; reference CMatrixOrdering,
 include/slam/OrderingMagic.h:201).
 
-A NumPy / pure-Python copy.  The JAX package's ``min_degree_ordering``
-calls its C++ implementation (``native/libslampp_native.so`` through
-``core/native_host.py``) when that library is built; the port runs the
-pure-Python branch only, so its orderings can differ from the JAX
-package's where ties are broken otherwise (ROADMAP.md queue 1 item 4).
+A NumPy / pure-Python copy, except that :func:`min_degree_ordering` runs
+the port's own C++ implementation (``csrc/slampp_native.cpp``), built at
+first use with the host C++ compiler into ``slampp_tpu_torch/_build/`` and
+bound through ``ctypes``; a failed build raises.  The pure-Python
+:func:`min_degree_ordering_py` is its plain reference, with the same
+tie-breaking.
 """
 
 from __future__ import annotations
 
+import ctypes
 import heapq
+import os
+import shutil
 import sys
+import threading
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -44,12 +50,59 @@ def rcm_ordering(adj: sp.csr_matrix) -> np.ndarray:
     return np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True), dtype=np.int64)
 
 
+_NATIVE_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "slampp_native.cpp"
+_NATIVE_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")  # native/Makefile's
+_native_lock = threading.Lock()
+_native_lib = None
+
+
+def _native() -> ctypes.CDLL:
+    """The C++ ordering library, built on first call."""
+    global _native_lib
+    from slampp_tpu_torch.ops._cuda import compile_shared
+
+    with _native_lock:
+        if _native_lib is None:
+            cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+            if cxx is None:
+                raise RuntimeError("no host C++ compiler (g++ / c++ / $CXX) for the ordering")
+            lib = ctypes.CDLL(str(compile_shared(_NATIVE_SOURCE, cxx, _NATIVE_FLAGS, {})))
+            p64 = ctypes.POINTER(ctypes.c_int64)
+            lib.slampp_min_degree_order.argtypes = [ctypes.c_int64, p64, p64, p64,
+                                                    ctypes.c_int64, p64]
+            lib.slampp_min_degree_order.restype = ctypes.c_int64
+            _native_lib = lib
+        return _native_lib
+
+
 def min_degree_ordering(adj: sp.csr_matrix,
                         constrained_last: Optional[Sequence[int]] = None) -> np.ndarray:
     """Minimum-degree ordering on the block graph with elimination-graph
-    updates.  ``constrained_last`` pins the given blocks to the end, in
-    their natural order (reference CLastElementOrderingConstraint,
-    OrderingMagic.h:138)."""
+    updates, by the C++ implementation.  ``constrained_last`` pins the given
+    blocks to the end, in their natural order (reference
+    CLastElementOrderingConstraint, OrderingMagic.h:138)."""
+    n = adj.shape[0]
+    rowptr = np.ascontiguousarray(adj.indptr, np.int64)
+    colidx = np.ascontiguousarray(adj.indices, np.int64)
+    last = np.ascontiguousarray(list(constrained_last or ()), np.int64)
+    perm = np.empty(n, np.int64)
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+    rc = _native().slampp_min_degree_order(n, ptr(rowptr), ptr(colidx), ptr(last), len(last),
+                                           ptr(perm))
+    if rc != 0:
+        raise ValueError(f"min_degree_ordering: the C++ ordering failed ({rc}); "
+                         "constrained_last must hold block ids in [0, n)")
+    return perm
+
+
+def min_degree_ordering_py(adj: sp.csr_matrix,
+                           constrained_last: Optional[Sequence[int]] = None) -> np.ndarray:
+    """The pure-Python minimum-degree ordering, :func:`min_degree_ordering`'s
+    plain reference (the same lazy heap and tie-breaking: smallest
+    (degree, block) first)."""
     n = adj.shape[0]
     last = set(int(x) for x in (constrained_last or ()))
     nbrs = [set(adj.indices[adj.indptr[i] : adj.indptr[i + 1]].tolist()) for i in range(n)]

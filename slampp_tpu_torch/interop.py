@@ -59,8 +59,8 @@ def graph_arrays(states: dict, vertex_offsets: dict, edges: dict, state_dim: int
 
 
 def block_plan(fields: dict) -> BlockPlan:
-    """``fields``: the BlockPlan attributes of a fine-granularity (panel=1)
-    plan; ``routing[name]`` is a dict with pair_transpose and pairs."""
+    """``fields``: the BlockPlan attributes; ``routing[name]`` is a dict
+    with pair_transpose and pairs."""
     kw = {f.name: _value(fields[f.name]) for f in dataclasses.fields(BlockPlan)}
     kw["routing"] = {
         k: EdgeRouting(_tensor(r["pair_transpose"]).bool(), tuple(r["pairs"]))

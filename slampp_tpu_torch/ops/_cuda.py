@@ -1,8 +1,10 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written native code (``csrc/``): the CUDA
+kernels (``dense_kernels.cu``, with ``nvcc``) and the host ordering
+(``slampp_native.cpp``, with the host C++ compiler; core/ordering.py).
 
-The sources are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface under ``slampp_tpu_torch/_build/`` (one file per
-source hash, so an edited source rebuilds), then bound through ``ctypes``.
+Each source is compiled at first use into a shared library with a plain C
+interface under ``slampp_tpu_torch/_build/`` (one file per hash of source
+and flags, so an edited source rebuilds), then bound through ``ctypes``.
 Nothing here runs at import: the CPU tests import every module on machines
 that have no ``nvcc`` and no card.
 """
@@ -43,27 +45,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _build() -> Path:
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"dense_kernels-{digest}.so"
+def compile_shared(source: Path, compiler: str, flags, info: dict) -> Path:
+    """``compiler flags -o <lib> source`` into BUILD_DIR, unless the library
+    of this source and these flags is there already; ``info`` gets its path,
+    the seconds the build took and the compiler's messages.  Raises when the
+    compiler fails."""
+    src = source.read_bytes()
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{source.stem}-{digest}.so"
     if out.exists():
-        build_info.update(path=str(out), seconds=0.0, log="(cached)")
+        info.update(path=str(out), seconds=0.0, log="(cached)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-        capture_output=True, text=True,
-    )
+    proc = subprocess.run([compiler, *flags, "-o", tmp, str(source)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"{compiler} failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
-    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log=proc.stderr)
+    info.update(path=str(out), seconds=time.perf_counter() - t0, log=proc.stderr)
     return out
 
 
@@ -72,7 +75,7 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
+            lib = ctypes.CDLL(str(compile_shared(_SOURCE, _nvcc(), NVCC_FLAGS, build_info)))
             ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"slampp_chol_{dt}")

@@ -34,6 +34,46 @@ def port_system(n_poses, seed=0, loop_prob=0.1):
     return _with_text_file(text, lambda p: build_system(parse_file(p)))
 
 
+def random_block_spd(n, bs, extra_pairs, seed):
+    """Random SPD block matrix on a chain plus extra off-diagonal pairs
+    (tests/test_sparse_chol.py): (A (n*bs, n*bs), sorted pairs (i, j), i > j)."""
+    rng = np.random.default_rng(seed)
+    pairs = {(i + 1, i) for i in range(n - 1)}
+    for _ in range(extra_pairs):
+        i, j = rng.integers(0, n, 2)
+        if i != j:
+            pairs.add((max(i, j), min(i, j)))
+    pairs = sorted(pairs)
+    A = np.zeros((n * bs, n * bs))
+    for i, j in pairs:
+        B = rng.normal(0, 1, (bs, bs))
+        A[i * bs : (i + 1) * bs, j * bs : (j + 1) * bs] = B
+        A[j * bs : (j + 1) * bs, i * bs : (i + 1) * bs] = B.T
+    A += np.eye(n * bs) * (np.abs(A).sum(axis=1).max() + 1.0)
+    return A, [(int(i), int(j)) for i, j in pairs]
+
+
+def permute_blocks(A, order, bs):
+    """A with its block rows and columns renumbered: new block b is old
+    block order[b] (a v2 plan's col_order)."""
+    idx = (np.asarray(order)[:, None] * bs + np.arange(bs)).reshape(-1)
+    return A[np.ix_(idx, idx)]
+
+
+def pack_v2(Ap, plan, bs):
+    """The v2 packed layout of ``Ap`` on ``plan``'s pattern: (D (n, bs, bs),
+    O (n_off, bs, bs))."""
+    D = np.zeros((plan.n, bs, bs))
+    O = np.zeros((plan.n_off, bs, bs))
+    for (i, j), s in plan.slot_of.items():
+        blk = Ap[i * bs : (i + 1) * bs, j * bs : (j + 1) * bs]
+        if i == j:
+            D[s] = blk
+        else:
+            O[s - plan.n] = blk
+    return D, O
+
+
 def np_segments(g):
     return (g.m, g.n_seg, [(np.asarray(b.seg_ids), np.asarray(b.idx)) for b in g.buckets])
 
@@ -53,17 +93,19 @@ def port_graph(jg):
 
 
 def port_block_plan(jbp):
-    """JAX BlockPlan (panel=1) -> the port's."""
+    """JAX BlockPlan -> the port's (a panel-1 plan has no unused scalar)."""
     from slampp_tpu_torch import interop
 
-    assert jbp.P == jbp.bs and not np.asarray(jbp.panel_diag_reg).any()
+    assert jbp.P != jbp.bs or not np.asarray(jbp.panel_diag_reg).any()
     return interop.block_plan({
-        "n": jbp.n, "bs": jbp.bs, "nnzb": jbp.nnzb,
+        "n": jbp.n, "bs": jbp.bs, "P": jbp.P, "nnzb": jbp.nnzb,
         "routing": {k: {"pair_transpose": np.asarray(r.pair_transpose), "pairs": r.pairs}
                     for k, r in jbp.routing.items()},
         "anchor_diag_slot": jbp.anchor_diag_slot, "anchor_off": jbp.anchor_off,
         "anchor_dim": jbp.anchor_dim, "unary_information": jbp.unary_information,
         "dx_offsets": np.asarray(jbp.dx_offsets), "state_dim": jbp.state_dim,
+        "panel_diag_slots": np.asarray(jbp.panel_diag_slots),
+        "panel_diag_reg": np.asarray(jbp.panel_diag_reg),
         "type_order": jbp.type_order,
         "asm_grp": np_segments(jbp.asm_grp), "asm_inv_map": np.asarray(jbp.asm_inv_map),
         "rhs_grp": np_segments(jbp.rhs_grp), "rhs_inv_map": np.asarray(jbp.rhs_inv_map),
@@ -166,6 +208,60 @@ def jax_incremental_reference(n_poses, engine, **kw):
     return out
 
 
+# chip_smoke.py's native phase: (name, engine, panel) of NativeBlockSolver
+NATIVE_RUNS = (("v1-p8", "v1", 8), ("v2-p1", "v2", 1), ("v2-p8", "v2", 8))
+
+
+def jax_native_fused(system, engine, panel, n_iters=5):
+    """``n_iters`` chained float64 GN iterations of the JAX package's
+    NativeBlockSolver, with no early exit: ``optimize_fused`` for v2, and
+    ``gn_step`` chained for v1 (which has no fused form), as the port's
+    ``apps/manhattan.run_native`` drives its own.  Returns (states, chi2
+    before, chi2 after)."""
+    from slampp_tpu.core.assembly import graph_chi2
+    from slampp_tpu.linear.native import NativeBlockSolver
+
+    ns = NativeBlockSolver(system, panel=panel, engine=engine)
+    graph = system.snapshot()
+    if engine == "v2":
+        states, _, chi0, chi2 = ns.optimize_fused(graph, n_iters)
+        return states, float(chi0), float(chi2)
+    states, chi0 = graph.states, None
+    for _ in range(n_iters):
+        states, _, c = ns.gn_step(graph.replace_states(states))
+        chi0 = c if chi0 is None else chi0
+    return states, float(chi0), float(graph_chi2(graph.replace_states(states)))
+
+
+def jax_marginals_reference(n_poses):
+    """chip_smoke.py's marginals reference: the seed-0 Manhattan graph after
+    5 fused GN iterations (v2, panel 8), then the dense ``update_batch``:
+    vertex 0's covariance block and the sum of the block traces."""
+    from slampp_tpu.marginals import MarginalCovariance
+
+    system = jax_system(n_poses)
+    states, _, _ = jax_native_fused(system, "v2", 8)
+    system.update_states(states)
+    m = MarginalCovariance(system)
+    m.update_batch()
+    return {"block0": np.asarray(m.block_diag[0]).tolist(),
+            "trace_sum": float(sum(np.trace(b) for b in m.block_diag.values()))}
+
+
+def jax_eigen_reference(n_poses, iters=80):
+    """chip_smoke.py's eigen reference: the largest and the smallest
+    (shift-invert through the v3 factorization) eigenvalue of the seed-0
+    Manhattan graph's lambda at its initial states, ``iters`` Lanczos
+    iterations each, and their ratio."""
+    from slampp_tpu.eval.eigenvalues import (sparse_largest_eigenvalues,
+                                             sparse_smallest_eigenvalues_shift_invert)
+
+    system = jax_system(n_poses)
+    lmax = float(sparse_largest_eigenvalues(system, 1, iters)[0][0])
+    lmin = float(sparse_smallest_eigenvalues_shift_invert(system, 1, 0.0, iters)[0][0])
+    return {"lmax": lmax, "lmin": lmin, "cond": abs(lmax) / max(abs(lmin), 1e-300)}
+
+
 if __name__ == "__main__":
     # The JAX package's reference values for chip_smoke.py's solver phases,
     # on the CPU, with the port's chain-mode configuration (separator through
@@ -174,6 +270,9 @@ if __name__ == "__main__":
     # and for its incremental phases (fastl and windowed-v3 at 800 poses,
     # every-n at 500; windowed-v3 takes minutes of JAX compiles):
     #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --incremental
+    # and for its native, marginals and eigen phases (a few GB for the dense
+    # marginals' 10500 x 10500 H at 3500 poses):
+    #   python tests/_torch_jax_util.py --native [n_poses]
     import json
     import sys
 
@@ -192,7 +291,17 @@ if __name__ == "__main__":
             print(json.dumps({"phase": phase, "n_poses": n,
                               **jax_incremental_reference(n, engine, **kw)}), flush=True)
         sys.exit(0)
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 3500
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    n = int(args[0]) if args else 3500
+    if "--native" in sys.argv:
+        for name, engine, panel in NATIVE_RUNS:
+            _, chi0, chi2 = jax_native_fused(jax_system(n), engine, panel)
+            print(json.dumps({"phase": "native", "run": name, "n_poses": n, "chi2_init": chi0,
+                              "chi2_final": chi2}), flush=True)
+        print(json.dumps({"phase": "marginals", "n_poses": n, **jax_marginals_reference(n)}),
+              flush=True)
+        print(json.dumps({"phase": "eigen", "n_poses": n, **jax_eigen_reference(n)}), flush=True)
+        sys.exit(0)
     for phase, nls, engine in (("gn", "lambda", None), ("lm", "lambda-lm", None),
                                ("lm-v3", "lambda-lm", "v3"), ("dl", "lambda-dl", None),
                                ("dl-v3", "lambda-dl", "v3")):

@@ -19,30 +19,10 @@ from slampp_tpu_torch.core import assembly, block_assembly, ordering, sparse_cho
 from slampp_tpu_torch.linear.native import NativeBlockSolver
 from slampp_tpu_torch.ops import small_blocks
 
-from _torch_jax_util import jax_system, port_graph, port_system
+from _torch_jax_util import jax_system, port_graph, port_system, random_block_spd as _random_block_spd
 
 torch.set_num_threads(1)
 t = torch.from_numpy
-
-
-def _random_block_spd(n, bs, extra_pairs, seed):
-    """Random SPD block matrix on a chain plus extra off-diagonal pairs
-    (tests/test_sparse_chol.py)."""
-    rng = np.random.default_rng(seed)
-    pairs = {(i + 1, i) for i in range(n - 1)}
-    for _ in range(extra_pairs):
-        i, j = rng.integers(0, n, 2)
-        if i != j:
-            pairs.add((max(i, j), min(i, j)))
-    pairs = sorted(pairs)
-    N = n * bs
-    A = np.zeros((N, N))
-    for i, j in pairs:
-        B = rng.normal(0, 1, (bs, bs))
-        A[i * bs : (i + 1) * bs, j * bs : (j + 1) * bs] = B
-        A[j * bs : (j + 1) * bs, i * bs : (i + 1) * bs] = B.T
-    A += np.eye(N) * (np.abs(A).sum(axis=1).max() + 1.0)
-    return A, [(int(i), int(j)) for i, j in pairs]
 
 
 def _pack(A, plan, bs):
@@ -232,15 +212,3 @@ def test_native_gn_step_matches_jax(mixed):
     assert float(torch.linalg.norm(H @ dx + g) / gn) < 1e-5
     assert float(torch.linalg.norm(H @ (dx - dx_j)) / gn) < 1e-5
     assert abs(float(dn) - float(torch.linalg.norm(dx))) <= 1e-12 * float(dn)
-
-
-@pytest.mark.parametrize("kw", [{"engine": "v2"}, {"panel": 2}, {"fused": True}])
-def test_native_not_ported_raises(kw):
-    """engine='v2', panel > 1 and optimize_fused name their ROADMAP item
-    instead of running another engine."""
-    system = port_system(20)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 4"):
-        if kw.pop("fused", False):
-            NativeBlockSolver(system, device="cpu").optimize_fused(system.snapshot("cpu"))
-        else:
-            NativeBlockSolver(system, device="cpu", **kw)
