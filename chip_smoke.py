@@ -82,8 +82,44 @@ the run with a non-zero exit code and no result line:
               1e-4 (smallest) of the JAX package's, all three kernels
               launched, in float64 only; the kernel phase checks and times
               each of its f64 shapes.
+  (after eigen: the SE(3) sphere graph, apps/sphere, against JAX_REF)
+  sphere      sphere2500 (make_sphere defaults: 50 rings), v3, mixed, dense
+              frames, 5 fused GN iterations, a first call and 3 repeats:
+              chi2 within 5e-3 of the JAX package's, the plan K = 40, Ms =
+              3952, all three kernels launched;
+  sphere-f64-limit  the same graph through the v3 engine in float64: the
+              (1, 3952, 3952) f64 separator is beyond chol_kernel's largest
+              f64 M (3104), so chol_batched must raise, not return;
+  sphere-exact  sphere1000 (20 rings), v3 in float64: chi2 within 1e-6;
+  sphere-lm-v3, sphere-dl-v3  the batch solvers on sphere2500 on the v3
+              engine (mixed, refine 2): chi2 within 5e-3 and the same
+              iterations applied as JAX's, kernels launched; dogleg runs to
+              its minimum |dx| (at most 20 iterations);
+  sphere-dl-v3-5  dogleg after the CLI's 5 iterations: 5 applied, kernels
+              launched, its chi2 printed beside JAX's with float32
+              Jacobians rounded from float64, not bounded (see
+              SPHERE_SOLVER_PHASES);
+  sphere-gn   sphere2500 through -nls lambda (GaussNewtonSolver, the native
+              v1 engine: the CLI's default) and the v2 engine eager and as
+              optimize_fused's CUDA graph: chi2 within 1e-6 of JAX's and the
+              same iterations applied, the graph's states within 1e-12 of
+              the eager run's, no dense-kernel launch;
+  robust      sphere2500, lambda-lm on v3 with every edge rebound to its
+              Cauchy variant on the whitened error (the CLI's --robust):
+              chi2 within 5e-3, the same iterations applied, some IRLS
+              weights below 1;
+  sphere-landmarks  make_sphere_landmarks' defaults (300 poses, 6 x 6 and 3 x 3
+              blocks), lambda-lm on the dense engine: chi2 within 1e-6 and
+              the same iterations applied;
+  fastl-se3   (in the incremental child) FastLSolver on sphere500 (10
+              rings), every vertex, through the torch kernel adapter: the
+              same solves, freezes and refreezes as the JAX package's, the
+              chunk relinearizations within 5% and the chi2 after the final
+              optimize within 1e-3 (TOL_FASTL_SE3: the trajectory follows
+              the kernels' rounding, in the JAX package too); the streamed
+              chi2 and optimize()'s return printed beside JAX's.
 Each phase's launches are counted from zero over that phase alone.  The
-whole script takes about five minutes on an H100, the kernels' build
+whole script takes about seven minutes on an H100, the kernels' build
 included.
 
 Then the kernel summary (JSON), the card's name and power limit, and the
@@ -142,6 +178,27 @@ JAX_REF = {
     },
     "eigen": {"lmax": 183974.89469745193, "lmin": 2.418037302982734e-08,
               "cond": 7608439062148.149},
+    # the sphere phases (apps/sphere, apps/incremental --graph sphere), by
+    #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --sphere
+    # sphere: v3 mixed; sphere-exact: v3 f64; the solvers: (chi2, applied;
+    # dogleg with at most 20 iterations)
+    "sphere": {"n_poses": 2500, "chi2_init": 14892690.995111257,
+               "chi2_final": 14658.562084637077,
+               "plan": {"K": 40, "M": 320, "S": 174, "SB": 658, "Ms": 3952, "ch_ok": 0}},
+    "sphere-exact": {"n_poses": 1000, "chi2_init": 6924463.3877691515,
+                     "chi2_final": 5650.462888464239},
+    "sphere-lm-v3": (21608.201136959546, 5),
+    "sphere-dl-v3": (14658.562068876383, 10),
+    # dogleg after the CLI's 5 iterations, the JAX package's float32
+    # Jacobians rounded from float64 (tests/_torch_jax_util.jax_jacobians)
+    "sphere-dl-v3-5": (2818619.226708726, 5),
+    "sphere-gn": (14658.562139146195, 5),
+    "sphere-gn-v2": 14658.562139146192,
+    "robust": (19837.69389440896, 5),
+    "sphere-landmarks": (4007.8272884259663, 5),
+    "fastl-se3": {"n_poses": 500, "chi2_stream": 2719.5259211599614, "n_solves": 499,
+                  "n_freezes": 5, "n_refreezes": 0, "n_relin": 622, "optimize_return": 3,
+                  "chi2_final": 2633.8160198909923},
 }
 # the native phase: (run, engine, panel, as optimize_fused's CUDA graph)
 NATIVE_RUNS = (("v1-p8", "v1", 8, False), ("v2-p1", "v2", 1, False), ("v2-p1", "v2", 1, True),
@@ -164,7 +221,36 @@ INC_PHASES = (
     ("fastl", "fastl", {}, ("n_solves", "n_freezes", "n_refreezes", "n_relin")),
     ("windowed-v3", "windowed", {"live_engine": "v3"}, ("n_solves", "n_freezes", "n_refreezes")),
     ("every-n", "every-n", {"solve_period": 10, "max_iterations": 3}, ("n_solves",)),
+    ("fastl-se3", "fastl", {"graph": "sphere"}, ("n_solves", "n_freezes", "n_refreezes")),
 )
+# FastL on sphere500 follows its kernels' rounding, in the JAX package too:
+# with its Jacobians scaled by 1 +- 1e-14 the chunk relinearizations move
+# from 622 to 606-618 and the final chi2 by up to 2.1e-4
+# (tests/_torch_jax_util.py --fastl-se3); under a seeded per-entry change
+# of 1e-15 of its Jacobians, 3 of 13 runs stream to chi2 1.2e4-3.0e5 and
+# end up to 7.2% high.  The port on the JAX kernels gives JAX's counters
+# and chi2 to 1.2e-15; on its own it gives JAX's final chi2 to 2.9e-7 on
+# the card's host and ends 67% high on another CPU (ROADMAP.md queue 3).
+# So fastl-se3 holds the structural counters exactly, the relinearizations
+# within 5% and the chi2 after the final optimize within 1e-3, and prints
+# the streamed chi2, optimize()'s return and the relinearizations beside
+# JAX's (vs_jax)
+TOL_FASTL_SE3 = {"n_relin": 0.05, "chi2_final": 1e-3}
+# the sphere's batch-solver phases: (phase, -nls, engine, robust, -mnsi,
+# chi2 tolerance), each holding the iterations applied to JAX's.  Dogleg
+# after the CLI's 5 iterations (chi2 2.8e6, every step on the trust
+# region's boundary) is held against JAX with its float32 Jacobians rounded
+# from float64, but its chi2 is printed, not bounded: a seeded per-entry
+# float32-sized change of those Jacobians moves the JAX package's own
+# result by 1.9e-3 to 1.09e-2 (6 seeds), and the card reads 2.1e-2, 5.0e-5
+# with the plain Cholesky at the separator (scripts/sphere_dogleg_ab.py;
+# the f32 kernel's accuracy there is an open fault, ROADMAP.md queue 3).
+# Run to its minimum |dx| (20 iterations at most; 10 applied) it is held
+# to 5e-3
+SPHERE_SOLVER_PHASES = (("sphere-lm-v3", "lambda-lm", "v3", None, 5, TOL_3500),
+                        ("sphere-dl-v3-5", "lambda-dl", "v3", None, 5, None),
+                        ("sphere-dl-v3", "lambda-dl", "v3", None, 20, TOL_3500),
+                        ("robust", "lambda-lm", "v3", ("cauchy", True), 5, TOL_3500))
 SOLVER_PHASES = (("gn", "lambda", None), ("lm", "lambda-lm", None), ("lm-v3", "lambda-lm", "v3"),
                  ("dl", "lambda-dl", None), ("dl-v3", "lambda-dl", "v3"))
 TOL_SOLVER_F64 = 1e-6
@@ -205,10 +291,10 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
-def _time_ms(fn, reps: int = 20) -> float:
+def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -220,11 +306,29 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time per call of ``fn``: the summed duration of the device
-    events (kernels, copies) that ``reps`` calls leave in a torch.profiler
-    trace, over ``reps``.  Unlike CUDA events around the calls, it leaves out
-    the host's time between launches."""
+def _reps(fn, budget_s: float = 0.5) -> int:
+    """How many calls of ``fn`` (1 to 20) fit in about ``budget_s``, from one
+    timed call (which also warms it up)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return max(1, min(20, int(budget_s / max(time.perf_counter() - t0, 1e-6))))
+
+
+def _device_ms(fn, reps: int = 20, warmup: int = 3, one_launch: bool = False):
+    """Device time per call of ``fn`` and where it came from: the summed
+    duration of the device events (kernels, copies) that ``reps`` calls
+    leave in a torch.profiler trace, over ``reps`` ("trace").  Unlike CUDA
+    events around the calls, it leaves out the host's time between
+    launches.  The card's traces lose device events now and then (fewer
+    events than calls, at any kernel length): where ``fn`` is
+    ``one_launch`` (a port kernel), the time is the mean over the events the
+    trace kept ("trace, k of n events"); otherwise a trace with fewer events
+    than calls is taken again, and after three such traces CUDA events
+    around the calls, host gaps included, stand in ("events")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -232,17 +336,19 @@ def _device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back without its device events: take another
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1000.0 / reps
-    raise RuntimeError("the profiler recorded no device time")
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        n = sum(e.count for e in events)
+        total = sum(e.self_device_time_total for e in events) / 1000.0
+        if n >= reps:
+            return total / reps, "trace"
+        if n and one_launch:
+            return total / n, f"trace, {n} of {reps} events"
+    return _time_ms(fn, reps, warmup=0), "events"
 
 
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM
@@ -347,6 +453,25 @@ def _check_kernels(dev):
         ("trsm_lower_batched", 1, 488, 8, (), (f64,), timed64),
         ("trsm_lower_t_batched", 55, 192, 8, (), (f64,), timed64),
         ("trsm_lower_t_batched", 1, 488, 8, (), (f64,), timed64),
+        # the sphere phases' shapes (6 x 6 blocks, dense frames): sphere2500
+        # (K = 40, M = 320, S = 174, its rhs column padded to 176; separator
+        # Ms = 3952) in float32, and in float64 where chol_kernel takes the
+        # separator; sphere1000 in float64 (K = 17, S = 150 + 1 -> 152,
+        # separator Ms = 1472)
+        ("chol_batched", 40, 320, None, (), both, both),
+        ("chol_batched", 1, 3952, None, (), (f32,), timed32),
+        ("trsm_lower_batched", 40, 320, 176, (), both, both),
+        ("trsm_lower_batched", 40, 320, 8, (), both, both),
+        ("trsm_lower_batched", 1, 3952, 8, (), (f32,), timed32),
+        ("trsm_lower_t_batched", 40, 320, 8, (), both, both),
+        ("trsm_lower_t_batched", 1, 3952, 8, (), (f32,), timed32),
+        ("chol_batched", 17, 320, None, (), (f64,), timed64),
+        ("chol_batched", 1, 1472, None, (), (f64,), timed64),
+        ("trsm_lower_batched", 17, 320, 152, (), (f64,), timed64),
+        ("trsm_lower_batched", 17, 320, 8, (), (f64,), timed64),
+        ("trsm_lower_batched", 1, 1472, 8, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 17, 320, 8, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 1, 1472, 8, (), (f64,), timed64),
     ]
     main_shape = (1, 488, f32)
     plain = {"chol_batched": dk.chol_batched_plain,
@@ -388,40 +513,60 @@ def _check_kernels(dev):
             if name == "chol_batched":
                 info["resident"] = M <= (res32 if dtype == f32 else res64)
             if dtype in timed:
-                info["ms"] = _time_ms(lambda: kern(*args))
-                info["plain_ms"] = _time_ms(lambda: plain[name](*args))
-                info["device_ms"] = _device_ms(lambda: kern(*args))
-                # the plain Cholesky is thousands of small launches a call
-                info["plain_device_ms"] = _device_ms(
-                    lambda: plain[name](*args), reps=2 if name == "chol_batched" else 20,
-                    warmup=1)
+                # 20 calls each, fewer where a call is long (the sphere
+                # separator, the plain Cholesky's ~150 launches per 8 columns)
+                rk, rp = _reps(lambda: kern(*args)), _reps(lambda: plain[name](*args))
+                info["ms"] = _time_ms(lambda: kern(*args), rk, 3 if rk == 20 else 1)
+                info["plain_ms"] = _time_ms(lambda: plain[name](*args), rp, 3 if rp == 20 else 1)
+                info["device_ms"], info["device_ms_source"] = _device_ms(
+                    lambda: kern(*args), rk, 3 if rk == 20 else 1, one_launch=True)
+                # (a plain call over 0.5 s is ~10^4-10^5 launches, whose
+                # trace takes a minute to read: its CUDA-event time stands
+                # alone, except at the main path's shape, traced twice)
+                info["plain_device_ms"], info["plain_device_ms_source"] = (None, None)
+                if rp > 1 or (K, M, dtype) == main_shape:
+                    info["plain_device_ms"], info["plain_device_ms_source"] = _device_ms(
+                        lambda: plain[name](*args),
+                        2 if name == "chol_batched" else max(2, rp), warmup=1)
                 if name == "chol_batched":  # cuSOLVER's: a yardstick, never called by the port
                     info["library_ms"] = _time_ms(lambda: torch.linalg.cholesky_ex(A))
-                    info["library_device_ms"] = _device_ms(lambda: torch.linalg.cholesky_ex(A))
+                    info["library_device_ms"], info["library_device_ms_source"] = _device_ms(
+                        lambda: torch.linalg.cholesky_ex(A))
                 else:  # the plain TRSM is the library call, torch.linalg.solve_triangular
                     info["library_ms"] = info["plain_ms"]
                     info["library_device_ms"] = info["plain_device_ms"]
+                    info["library_device_ms_source"] = info["plain_device_ms_source"]
                 info["bound_ms"], info["bound_by"] = _bound(name, K, M, S, dt)
                 if (K, M, dtype) == main_shape:
                     summary[name].update({k: info[k] for k in (
                         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
-                        "plain_device_ms", "library_device_ms")})
+                        "device_ms_source", "plain_device_ms", "plain_device_ms_source",
+                        "library_device_ms", "library_device_ms_source")})
             if not zero_rows:
                 summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
             _line("kernels", finite and rel <= tol, time.perf_counter() - t0, **info)
     return summary
 
 
-def _run_path(phase, run, dev, n_poses, expected, tol, **kw):
+# pose vertex type -> its state width
+POSE_DIMS = {"pose2d": 3, "pose3d": 6}
+
+
+def _states_ok(states, n_poses) -> bool:
+    """Every state finite, and one pose per vertex of the graph's pose type."""
     import torch
 
+    (pose,) = [t for t in states if t in POSE_DIMS]
+    return (all(bool(torch.isfinite(s).all()) for s in states.values())
+            and states[pose].shape == (n_poses, POSE_DIMS[pose]))
+
+
+def _run_path(phase, run, dev, n_poses, expected, tol, ok=True, **kw):
     t0 = time.perf_counter()
     res = run(n_poses, dev, **kw)
     states = res.pop("states")
     rel = abs(res["chi2_final"] - expected) / expected
-    finite = all(bool(torch.isfinite(s).all()) for s in states.values())
-    shape_ok = states["pose2d"].shape == (n_poses, 3)
-    _line(phase, rel < tol and finite and shape_ok, time.perf_counter() - t0,
+    _line(phase, ok and rel < tol and _states_ok(states, n_poses), time.perf_counter() - t0,
           expected=expected, rel_err=rel, tol=tol, **res)
     return res
 
@@ -429,8 +574,6 @@ def _run_path(phase, run, dev, n_poses, expected, tol, **kw):
 def _solver_phase(phase, nls, engine, dev):
     """One batch solver on manhattan3500 against the JAX package's result;
     its kernel launches counted from zero."""
-    import torch
-
     from slampp_tpu_torch.apps import manhattan
     from slampp_tpu_torch.ops import dense_kernels as dk
 
@@ -443,8 +586,7 @@ def _solver_phase(phase, nls, engine, dev):
     rel = abs(res["chi2_final"] - expected) / expected
     exact = engine is None
     tol = TOL_SOLVER_F64 if exact else TOL_3500
-    finite = all(bool(torch.isfinite(s).all()) for s in states.values())
-    ok = rel <= tol and finite and states["pose2d"].shape == (3500, 3)
+    ok = rel <= tol and _states_ok(states, 3500)
     if exact:
         ok = ok and res["applied"] == applied_ref and not any(launches.values())
     else:
@@ -481,8 +623,6 @@ def _native_phase(dev):
     """The native engines at manhattan3500 (apps/manhattan.run_native), each
     run's launches counted from zero; the graph runs against the eager run
     of the same engine and panel."""
-    import torch
-
     from slampp_tpu_torch.apps import manhattan
     from slampp_tpu_torch.ops import dense_kernels as dk
 
@@ -495,9 +635,7 @@ def _native_phase(dev):
         states = res.pop("states")
         expected = JAX_REF["native"][name]
         rel = abs(res["chi2_final"] - expected) / expected
-        ok = (rel <= TOL_NATIVE and not any(launches.values())
-              and all(bool(torch.isfinite(s).all()) for s in states.values())
-              and states["pose2d"].shape == (3500, 3))
+        ok = rel <= TOL_NATIVE and not any(launches.values()) and _states_ok(states, 3500)
         info = {}
         if fused:
             ref = eager[name]
@@ -548,14 +686,111 @@ def _eigen_phase(dev):
     return res["solve_shifted"]["solve"]["launches"]
 
 
+def _sphere_phases(dev) -> dict:
+    """The SE(3) sphere phases (apps/sphere) against JAX_REF, each one's
+    launches counted from zero; returns the launches per GN / solver
+    iteration of those that launch the kernels."""
+    from slampp_tpu_torch.apps import sphere
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    per_iter = {}
+    ref = JAX_REF["sphere"]
+    dk.reset_launches()
+    res = _run_path("sphere", sphere.run, dev, 2500, ref["chi2_final"], TOL_3500, n_rep=3)
+    launches = dict(dk.launches)
+    _line("sphere-launches", all(res["plan"][k] == v for k, v in ref["plan"].items())
+          and all(v > 0 for v in launches.values()), 0.0, plan=res["plan"], launches=launches,
+          kernel_shapes=sorted(dk.launch_shapes, key=lambda s: (s[0], s[1], s[2], s[3] or 0)))
+    per_iter["sphere"] = {k: v / (res["n_iters"] * (1 + res["n_rep"]))
+                          for k, v in launches.items()}
+
+    # exact f64 at sphere2500: the separator exceeds chol_kernel's f64 limit
+    t0 = time.perf_counter()
+    try:
+        sphere.run(2500, dev, mixed_precision=False, n_rep=0)
+        err = None
+    except RuntimeError as exc:
+        err = str(exc)
+    _line("sphere-f64-limit", err is not None and err.startswith("chol_batched:"),
+          time.perf_counter() - t0, error=err,
+          max_m_f64=3104, separator_m=ref["plan"]["Ms"])
+
+    ref = JAX_REF["sphere-exact"]
+    dk.reset_launches()
+    res = _run_path("sphere-exact", sphere.run, dev, 1000, ref["chi2_final"], TOL_500,
+                    mixed_precision=False, n_rep=2)
+    launches = dict(dk.launches)
+    _line("sphere-exact-launches", all(v > 0 for v in launches.values())
+          and {s[4] for s in dk.launch_shapes} == {"float64"}, 0.0, plan=res["plan"],
+          launches=launches)
+    per_iter["sphere-exact"] = {k: v / (res["n_iters"] * (1 + res["n_rep"]))
+                                for k, v in launches.items()}
+
+    for phase, nls, engine, robust, max_iters, tol in SPHERE_SOLVER_PHASES:
+        expected, applied_ref = JAX_REF[phase]
+        t0 = time.perf_counter()
+        dk.reset_launches()
+        res = sphere.run_solver(2500, dev, nls, engine, robust, max_iters=max_iters)
+        launches = dict(dk.launches)
+        states = res.pop("states")
+        rel = abs(res["chi2_final"] - expected) / expected
+        ok = ((tol is None or rel <= tol) and res["applied"] == applied_ref
+              and _states_ok(states, 2500) and all(v > 0 for v in launches.values()))
+        if robust is not None:
+            ok = ok and res["robust"]["share_below_1"] > 0
+        per_iter[phase] = {k: v / res["iterations"] for k, v in launches.items()}
+        _line(phase, ok, time.perf_counter() - t0, expected=expected, applied_ref=applied_ref,
+              rel_err=rel, tol=tol, launches_per_iter=per_iter[phase], **res)
+
+    # -nls lambda (native v1, f64), then v2 eager and as the CUDA graph
+    expected, applied_ref = JAX_REF["sphere-gn"]
+    t0 = time.perf_counter()
+    dk.reset_launches()
+    res = sphere.run_solver(2500, dev, "lambda")
+    states = res.pop("states")
+    rel = abs(res["chi2_final"] - expected) / expected
+    _line("sphere-gn", rel <= TOL_SOLVER_F64 and res["applied"] == applied_ref
+          and _states_ok(states, 2500) and not any(dk.launches.values()),
+          time.perf_counter() - t0, expected=expected, applied_ref=applied_ref, rel_err=rel,
+          tol=TOL_SOLVER_F64, **res)
+    expected = JAX_REF["sphere-gn-v2"]
+    eager = None
+    for fused in (False, True):
+        t0 = time.perf_counter()
+        dk.reset_launches()
+        res = sphere.run_native(2500, dev, "v2", panel=1, fused=fused)
+        states = res.pop("states")
+        rel = abs(res["chi2_final"] - expected) / expected
+        ok = rel <= TOL_NATIVE and not any(dk.launches.values()) and _states_ok(states, 2500)
+        info = {}
+        if fused:
+            info["graph_vs_eager"] = max(float((states[t] - eager[t]).abs().max())
+                                         for t in eager)
+            ok = ok and info["graph_vs_eager"] <= TOL_GRAPH
+        else:
+            eager = states
+        _line(f"sphere-gn-v2{'-graph' if fused else ''}", ok, time.perf_counter() - t0,
+              expected=expected, rel_err=rel, tol=TOL_NATIVE, tol_graph=TOL_GRAPH, **info, **res)
+
+    expected, applied_ref = JAX_REF["sphere-landmarks"]
+    t0 = time.perf_counter()
+    dk.reset_launches()
+    res = sphere.run_solver(300, dev, "lambda-lm", n_rings=10, landmarks=True)
+    states = res.pop("states")
+    rel = abs(res["chi2_final"] - expected) / expected
+    _line("sphere-landmarks", rel <= TOL_SOLVER_F64 and res["applied"] == applied_ref
+          and _states_ok(states, 300) and states["landmark3d"].shape[1] == 3,
+          time.perf_counter() - t0, expected=expected, applied_ref=applied_ref, rel_err=rel,
+          tol=TOL_SOLVER_F64, **res)
+    return per_iter
+
+
 def _incremental_phase(phase, engine, kw, counters, dev):
-    """One incremental solver streamed over the Manhattan graph and then
+    """One incremental solver streamed over its graph and then
     optimized, against the JAX package's run; its kernel launches counted
     from zero.  Returns the launches per kernel-launching step: per v3 full
     solve while streaming, per final-optimize iteration, or per GN
     iteration for every-n."""
-    import torch
-
     from slampp_tpu_torch.apps import incremental
     from slampp_tpu_torch.ops import dense_kernels as dk
 
@@ -566,13 +801,21 @@ def _incremental_phase(phase, engine, kw, counters, dev):
     launches = dict(dk.launches)
     states = res.pop("states")
     rel = {k: abs(res[k] - ref[k]) / ref[k] for k in ("chi2_stream", "chi2_final")}
-    ok = (all(v <= TOL_SOLVER_F64 for v in rel.values())
-          and all(res["counters"][k] == ref[k] for k in counters)
-          and res["optimize_return"] == ref["optimize_return"]
-          and all(bool(torch.isfinite(s).all()) for s in states.values())
-          and states["pose2d"].shape == (ref["n_poses"], 3))
+    ok = all(res["counters"][k] == ref[k] for k in counters) and _states_ok(states, ref["n_poses"])
+    if phase == "fastl-se3":
+        rel["n_relin"] = abs(res["counters"]["n_relin"] - ref["n_relin"]) / ref["n_relin"]
+        tol = TOL_FASTL_SE3
+        ok = ok and all(rel[k] <= v for k, v in tol.items())
+        # what the gate does not hold, (port, JAX) side by side
+        res["vs_jax"] = {"chi2_stream": [res["chi2_stream"], ref["chi2_stream"]],
+                         "optimize_return": [res["optimize_return"], ref["optimize_return"]],
+                         "n_relin": [res["counters"]["n_relin"], ref["n_relin"]]}
+    else:
+        tol = TOL_SOLVER_F64
+        ok = (ok and all(v <= tol for v in rel.values())
+              and res["optimize_return"] == ref["optimize_return"])
     f64_launched = {s[0] for s in res["kernel_shapes"] if s[4] == "float64"}
-    if phase == "fastl":
+    if engine == "fastl":
         ok = (ok and all(v > 0 for v in res["launches_optimize"].values())
               and f64_launched == set(launches))
         per = {k: v / res["optimize_return"] for k, v in res["launches_optimize"].items()}
@@ -583,7 +826,7 @@ def _incremental_phase(phase, engine, kw, counters, dev):
         per = {k: v / res["full_solves"]["v3"] for k, v in res["launches_stream"].items()}
     else:
         per = {k: v / res["counters"]["n_iterations"] for k, v in launches.items()}
-    _line(phase, ok, time.perf_counter() - t0, rel_err=rel, tol=TOL_SOLVER_F64,
+    _line(phase, ok, time.perf_counter() - t0, rel_err=rel, tol=tol,
           reference=ref, launches=launches, **res)
     return per
 
@@ -648,6 +891,9 @@ def main() -> int:
     _native_phase(dev)
     _marginals_phase(dev)
     per_iter["eigen"] = _eigen_phase(dev)
+
+    # the SE(3) sphere graph and the robust losses
+    per_iter.update(_sphere_phases(dev))
 
     # 13-15. the incremental solvers, in a child process of their own
     per_iter.update(_incremental_child())

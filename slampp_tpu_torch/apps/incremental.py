@@ -1,12 +1,13 @@
-"""The incremental solvers on a generated Manhattan pose graph — the port's
+"""The incremental solvers on a generated pose graph — the port's
 counterpart of the bench's ``bench_incremental`` row
 (``manhattan3500_incremental_steps_per_sec``, the reference's ``-fL``
-role) and of the JAX CLI's ``-nsp`` path: generate the seed-0 graph, write
-and parse its g2o text, stream it through ``build_system(...,
-problem="se2", on_edge=...)`` with one ``incremental_step`` per edge, then
-``refresh_frozen``, ``chi2`` and a final ``optimize``.
+role) and of the JAX CLI's ``-nsp`` path: generate the seed-0 graph (the
+Manhattan graph, or with ``--graph sphere`` the SE(3) sphere of one ring
+per 50 poses), write and parse its g2o text, stream it through
+``build_system(..., on_edge=...)`` with one ``incremental_step`` per edge,
+then ``refresh_frozen``, ``chi2`` and a final ``optimize``.
 
-    python -m slampp_tpu_torch.apps.incremental [n_poses] [device] [--engine fastl|windowed|every-n] [--live-engine auto|v3|dense]
+    python -m slampp_tpu_torch.apps.incremental [n_poses] [device] [--graph manhattan|sphere] [--engine fastl|windowed|every-n] [--live-engine auto|v3|dense]
 
 prints ``run_incremental``'s result as one JSON object.
 """
@@ -16,21 +17,25 @@ from __future__ import annotations
 import json
 import os
 import sys
-import tempfile
 import time
 
 import numpy as np
 import torch
 
 from slampp_tpu_torch.graph.system import GraphSystem
-from slampp_tpu_torch.io.datasets import make_manhattan
-from slampp_tpu_torch.io.parser import build_system, parse_file
+from slampp_tpu_torch.io.datasets import make_manhattan, sphere_text
+from slampp_tpu_torch.io.parser import build_system, g2o_file, parse_file
 from slampp_tpu_torch.ops import dense_kernels as dk
 from slampp_tpu_torch.solvers import FastLSolver, IncrementalSolver, WindowedIncrementalSolver
 from slampp_tpu_torch.utils.device import require_device
 
 ENGINES = {"fastl": FastLSolver, "windowed": WindowedIncrementalSolver,
            "every-n": IncrementalSolver}
+# graph -> (its seed-0 g2o text for n poses, the problem build_system is told)
+GRAPHS = {
+    "manhattan": (lambda n: make_manhattan(n_poses=n, loop_prob=0.1, seed=0)[0], "se2"),
+    "sphere": (sphere_text, "se3"),
+}
 
 
 def _sync(device: torch.device) -> None:
@@ -54,8 +59,8 @@ def _launch_delta(before: dict) -> dict:
 
 
 def run_incremental(n_poses: int, device, engine: str = "fastl", optimize: bool = True,
-                    **solver_kw) -> dict:
-    """Stream the seed-0 Manhattan graph through one incremental
+                    graph: str = "manhattan", **solver_kw) -> dict:
+    """Stream the seed-0 ``graph`` (``GRAPHS``) through one incremental
     solver at every-vertex cadence (``solve_period=1``,
     ``require_loop_closure=False``, as the bench row; ``solver_kw``
     overrides these and passes the solver's other keywords), then
@@ -72,29 +77,26 @@ def run_incremental(n_poses: int, device, engine: str = "fastl", optimize: bool 
     require_device(device, "run_incremental")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {sorted(ENGINES)}")
-    text, _ = make_manhattan(n_poses=n_poses, loop_prob=0.1, seed=0)
+    make_text, problem = GRAPHS[graph]
+    text = make_text(n_poses)
     system = GraphSystem()
     kw = {"solve_period": 1, "require_loop_closure": False, **solver_kw}
     inc = ENGINES[engine](system, device=device, **kw)
     dk.launch_shapes.clear()
     launches0 = dict(dk.launches)
-    with tempfile.NamedTemporaryFile("w", suffix=".g2o", delete=False) as f:
-        f.write(text)
-        path = f.name
-    try:
+    with g2o_file(text) as path:
         t0 = time.perf_counter()
-        build_system(parse_file(path), problem="se2", system=system,
+        build_system(parse_file(path), problem=problem, system=system,
                      on_edge=lambda s, n: inc.incremental_step())
         if hasattr(inc, "refresh_frozen"):
             inc.refresh_frozen()
         _sync(device)
         t_stream = time.perf_counter() - t0
-    finally:
-        os.unlink(path)
     launches_stream = _launch_delta(launches0)
     chi2_stream = inc.chi2()
     out = {
-        "n_poses": n_poses, "device": str(device), "engine": engine, "solver_kw": kw,
+        "n_poses": n_poses, "device": str(device), "graph": graph, "engine": engine,
+        "solver_kw": kw,
         "n_edges": system.n_edges, "solves": inc.n_solves, "t_stream_s": t_stream,
         "solves_per_sec": inc.n_solves / t_stream, "chi2_stream": chi2_stream,
         "counters": {k: getattr(inc, k) for k in (
@@ -133,11 +135,12 @@ def _option(name: str):
 
 if __name__ == "__main__":
     engine_kind, live_engine = _option("--engine") or "fastl", _option("--live-engine")
-    values = {engine_kind, live_engine}
+    graph_kind = _option("--graph") or "manhattan"
+    values = {engine_kind, live_engine, graph_kind}
     args = [a for a in sys.argv[1:] if not a.startswith("--") and a not in values]
     n = int(args[0]) if args else 800
     dev = args[1] if len(args) > 1 else "cuda"
     kw = {"live_engine": live_engine} if live_engine else {}
-    res = run_incremental(n, dev, engine_kind, **kw)
+    res = run_incremental(n, dev, engine_kind, graph=graph_kind, **kw)
     res.pop("states")
     print(json.dumps(res, default=lambda o: o.item() if isinstance(o, np.generic) else str(o)))

@@ -35,24 +35,23 @@ print ``run_native`` (or ``profile_native``), ``run_marginals`` and
 from __future__ import annotations
 
 import json
-import os
 import statistics
 import sys
-import tempfile
 import time
 
 import numpy as np
 import torch
 
-from slampp_tpu_torch.core.assembly import apply_update, assemble_dense, graph_chi2
+from slampp_tpu_torch.core.assembly import apply_update, assemble_dense, graph_chi2, slot_states
 from slampp_tpu_torch.eval import eigenvalues as eig
 from slampp_tpu_torch.io.datasets import make_manhattan
-from slampp_tpu_torch.io.parser import build_system, parse_file
-from slampp_tpu_torch.graph.types import get_vertex_type
+from slampp_tpu_torch.io.parser import build_system, g2o_file, parse_file
+from slampp_tpu_torch.graph.types import get_edge_type, get_vertex_type
 from slampp_tpu_torch.linear.dense import solve_spd
 from slampp_tpu_torch.linear.native import NativeBlockSolver
 from slampp_tpu_torch.linear.partitioned import PartitionedSolver
 from slampp_tpu_torch.marginals import MarginalCovariance
+from slampp_tpu_torch.models.robust import apply_robust_to_system
 from slampp_tpu_torch.ops import dense_kernels as dk
 from slampp_tpu_torch.solvers import DoglegSolver, GaussNewtonSolver, LevenbergMarquardtSolver
 
@@ -60,13 +59,8 @@ from slampp_tpu_torch.solvers import DoglegSolver, GaussNewtonSolver, LevenbergM
 def manhattan_system(n_poses: int, seed: int = 0):
     """The seed-``seed`` Manhattan graph, through the g2o text and parser."""
     text, _ = make_manhattan(n_poses=n_poses, loop_prob=0.1, seed=seed)
-    with tempfile.NamedTemporaryFile("w", suffix=".g2o", delete=False) as f:
-        f.write(text)
-        path = f.name
-    try:
+    with g2o_file(text) as path:
         return build_system(parse_file(path))
-    finally:
-        os.unlink(path)
 
 
 def _sync(device: torch.device) -> None:
@@ -75,8 +69,10 @@ def _sync(device: torch.device) -> None:
 
 
 def run(n_poses: int, device, n_iters: int = 5, target: int = 64, refine: int = 0,
-        mixed_precision: bool = True, dense_frames: bool = False, n_rep: int = 10) -> dict:
-    """Optimize the Manhattan graph with ``n_iters`` fused GN iterations,
+        mixed_precision: bool = True, dense_frames: bool = False, n_rep: int = 10,
+        build=manhattan_system) -> dict:
+    """Optimize the graph ``build(n_poses)`` (the Manhattan graph unless
+    another ``build`` is given) with ``n_iters`` fused GN iterations,
     ``1 + n_rep`` times from the same start.  ``dense_frames`` forces the
     dense-frame branch (the one taken when part interiors are not chains).
 
@@ -87,7 +83,7 @@ def run(n_poses: int, device, n_iters: int = 5, target: int = 64, refine: int = 
     device = torch.device(device)
     launches0 = dict(dk.launches)
     t0 = time.perf_counter()
-    system = manhattan_system(n_poses)
+    system = build(n_poses)
     t_build = time.perf_counter() - t0
 
     ps = PartitionedSolver(system, target=target, mixed_precision=mixed_precision,
@@ -160,10 +156,12 @@ def _profiled(fn, device: torch.device, top: int) -> dict:
 
 
 def profile(n_poses: int, device, n_iters: int = 5, target: int = 64, refine: int = 0,
-            mixed_precision: bool = True, dense_frames: bool = False, top: int = 15) -> dict:
-    """Where the time of one warm ``optimize_fused`` call goes (``_profiled``)."""
+            mixed_precision: bool = True, dense_frames: bool = False, top: int = 15,
+            build=manhattan_system) -> dict:
+    """Where the time of one warm ``optimize_fused`` call on ``build(n_poses)``
+    goes (``_profiled``)."""
     device = torch.device(device)
-    system = manhattan_system(n_poses)
+    system = build(n_poses)
     ps = PartitionedSolver(system, target=target, mixed_precision=mixed_precision,
                            refine_iters=refine, device=device)
     ps.symbolic()
@@ -198,18 +196,25 @@ def make_solver(system, nls: str, device, engine=None):
 
 
 def run_solver(n_poses: int, device, nls: str, engine=None, max_iters: int = 5,
-               min_dx: float = 0.01) -> dict:
-    """Optimize the seed-0 Manhattan graph once with a batch solver
+               min_dx: float = 0.01, build=manhattan_system, robust=None) -> dict:
+    """Optimize the graph ``build(n_poses)`` (the seed-0 Manhattan graph
+    unless another ``build`` is given) once with a batch solver
     (``make_solver``), ``max_iters`` and ``min_dx`` as the CLI's -mnsi and
-    -nset.  Returns chi2 before and after, the iterations applied and run,
-    the optimize call's wall time and its time per iteration without the
-    host planner (``s_per_iter``), the solver's per-phase times (a nested
-    phase, such as ``v3_symbolic`` inside ``solve``, counts in both), the
-    kernel launches during the call and the final states."""
+    -nset; ``robust=(loss, on_chi2)`` first rebinds every edge type to its
+    robust variant, as the CLI's ``--robust`` does.  Returns chi2 before and
+    after, the iterations applied and run, the optimize call's wall time and
+    its time per iteration without the host planner (``s_per_iter``), the
+    solver's per-phase times (a nested phase, such as ``v3_symbolic`` inside
+    ``solve``, counts in both), the kernel launches during the call, with
+    ``robust`` the IRLS weights at the final states (their share below 1,
+    least and mean), and the final states."""
     device = torch.device(device)
     t0 = time.perf_counter()
-    system = manhattan_system(n_poses)
+    system = build(n_poses)
     t_build = time.perf_counter() - t0
+    if robust is not None:
+        loss, on_chi2 = robust
+        apply_robust_to_system(system, loss=loss, on_chi2=on_chi2)
     solver = make_solver(system, nls, device, engine)
     chi2_init = solver.chi2()
     launches0 = dict(dk.launches)
@@ -220,6 +225,7 @@ def run_solver(n_poses: int, device, nls: str, engine=None, max_iters: int = 5,
     launches = {k: v - launches0[k] for k, v in dk.launches.items()}
     # the host planner runs inside the first optimize; the rate leaves it out
     t_sym = sum(v for k, v in solver.timer.acc.items() if k.endswith("symbolic"))
+    final = system.snapshot(device)
     out = {
         "n_poses": n_poses, "device": str(device), "solver": nls, "engine": engine,
         "chi2_init": chi2_init, "chi2_final": solver.chi2(), "applied": applied,
@@ -228,12 +234,28 @@ def run_solver(n_poses: int, device, nls: str, engine=None, max_iters: int = 5,
         "phases": {k: {"s": v, "calls": solver.timer.counts[k]}
                    for k, v in solver.timer.acc.items()},
         "launches": launches,
-        "states": system.snapshot(device).states,
+        "states": final.states,
     }
+    if robust is not None:
+        out["robust"] = {"loss": robust[0], "on_chi2": robust[1], **_robust_weights(final)}
     native = getattr(solver, "_native", None)
     if native is not None:
         out["levels"] = native.dplan.n_levels
     return out
+
+
+def _robust_weights(graph) -> dict:
+    """The IRLS weights of every robust edge at the graph's states: the
+    share below 1, the least and the mean."""
+    ws = []
+    for name, ea in graph.edges.items():
+        et = get_edge_type(name)
+        if et.robust_weight_fn is not None:
+            r = et.error_fn(slot_states(et, ea, graph.states), ea.meas)
+            ws.append(et.robust_weight_fn(r, ea.sigma_inv)[ea.valid])
+    w = torch.cat(ws)
+    return {"n_edges": int(w.numel()), "share_below_1": float((w < 1.0).double().mean()),
+            "min_weight": float(w.min()), "mean_weight": float(w.mean())}
 
 
 def profile_solver(n_poses: int, device, nls: str, engine=None, max_iters: int = 5,
@@ -348,8 +370,9 @@ def _native_iterations(ns: NativeBlockSolver, graph, n_iters: int, fused: bool):
 
 
 def run_native(n_poses: int, device, engine: str = "v2", panel: int = 1, mixed: bool = False,
-               fused: bool = False, n_iters: int = 5) -> dict:
-    """``n_iters`` GN iterations of NativeBlockSolver on the Manhattan graph,
+               fused: bool = False, n_iters: int = 5, build=manhattan_system) -> dict:
+    """``n_iters`` GN iterations of NativeBlockSolver on the graph
+    ``build(n_poses)`` (the Manhattan graph unless another ``build`` is given),
     twice from the same start: the first call builds what the solver caches
     (on the card, the CUDA graph of one iteration), the second is timed from
     a synced device to its host read.  Returns chi2 before and after (of the
@@ -358,7 +381,7 @@ def run_native(n_poses: int, device, engine: str = "v2", panel: int = 1, mixed: 
     ``fused`` on the card, the dense-kernel launches (the native engines
     make none) and the final states."""
     device = torch.device(device)
-    system = manhattan_system(n_poses)
+    system = build(n_poses)
     ns = NativeBlockSolver(system, panel=panel, mixed_precision=mixed, engine=engine,
                            device=device)
     t0 = time.perf_counter()

@@ -3,8 +3,10 @@ update (counterpart of ``slampp_tpu/core/assembly.py``).
 
 Sign convention as in the JAX package: the error ``r(x)`` itself is
 differentiated, so the system is ``H dx = -g`` with ``H = J^T W J``,
-``g = J^T W r``, ``W = Sigma^-1``.  ``assemble_dense`` is the tests' dense
-oracle; the solver path assembles blocks (core/block_assembly.py).
+``g = J^T W r``, ``W = Sigma^-1`` (times the IRLS weight of an edge type
+that has a robust loss; chi2 stays unweighted).  ``assemble_dense`` is the
+tests' dense oracle; the solver path assembles blocks
+(core/block_assembly.py).
 """
 
 from __future__ import annotations
@@ -39,6 +41,16 @@ def graph_chi2(graph: GraphArrays) -> torch.Tensor:
     return total
 
 
+def robust_information(et, r: torch.Tensor, sigma_inv: torch.Tensor) -> torch.Tensor:
+    """The information matrices assembly weighs with: ``sigma_inv`` times
+    the edge type's IRLS weight of the residuals, where it has one
+    (reference BaseTypes_Binary.h:772).  chi2 stays on the bare
+    ``sigma_inv``."""
+    if et.robust_weight_fn is None:
+        return sigma_inv
+    return sigma_inv * et.robust_weight_fn(r, sigma_inv)[:, None, None]
+
+
 def _dmax(graph: GraphArrays) -> int:
     return max((get_vertex_type(t).dim for t in graph.states), default=1)
 
@@ -58,7 +70,8 @@ def assemble_dense(graph: GraphArrays) -> Tuple[torch.Tensor, torch.Tensor, torc
         r, jacs = et.jacobian_fn(slot_states(et, ea, graph.states), ea.meas)
         valid = ea.valid.to(r.dtype)
         chi2 = chi2 + (torch.einsum("ei,eij,ej->e", r, ea.sigma_inv, r) * valid).sum()
-        WJ = [torch.einsum("eij,ejk->eik", ea.sigma_inv, J) for J in jacs]
+        W = robust_information(et, r, ea.sigma_inv)
+        WJ = [torch.einsum("eij,ejk->eik", W, J) for J in jacs]
         for a in range(et.arity):
             rows = ea.offsets[:, a, None] + torch.arange(vts[a].dim, device=dev)
             ga = torch.einsum("eij,ei->ej", WJ[a], r) * valid[:, None]

@@ -27,7 +27,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from slampp_tpu_torch.core.assembly import slot_states
+from slampp_tpu_torch.core.assembly import robust_information, slot_states
 from slampp_tpu_torch.graph.system import GraphArrays, GraphSystem
 from slampp_tpu_torch.graph.types import get_edge_type, get_vertex_type
 from slampp_tpu_torch.ops.segments import (
@@ -241,8 +241,9 @@ def _edge_type_terms(graph: GraphArrays, bp: BlockPlan, name: str,
     rt = bp.routing[name]
     xs = slot_states(et, ea, graph.states)
     r, jacs = et.jacobian_fn(xs, ea.meas)
-    W = ea.sigma_inv
-    chi2 = torch.where(ea.valid, torch.einsum("ei,eij,ej->e", r, W, r), 0.0).sum()
+    # chi2 on the bare information; the Hessian and rhs with the robust weight
+    chi2 = torch.where(ea.valid, torch.einsum("ei,eij,ej->e", r, ea.sigma_inv, r), 0.0).sum()
+    W = robust_information(et, r, ea.sigma_inv)
     if hessian_f32:
         _, jacs = et.jacobian_fn(tuple(x.float() for x in xs), ea.meas.float())
         W = W.float()

@@ -13,9 +13,11 @@ Conventions as in the JAX package: ``error_fn`` is the residual
 ``z (-) h(x)``; the Gauss-Newton system is ``H dx = -g`` with
 ``H = J^T W J``, ``g = J^T W r``.
 
+* ``EdgeType.robust_weight_fn(r (E, res_dim), sigma_inv (E, res_dim, res_dim)) -> (E,)``
+  the IRLS weight that multiplies ``sigma_inv`` in assembly (models/robust.py).
+
 The port has no autodiff path (the JAX package used ``jax.jacfwd``), so an
-edge type must bring its analytic ``jacobian_fn``; robust losses wait for a
-later port.
+edge type must bring its analytic ``jacobian_fn``.
 """
 
 from __future__ import annotations
@@ -67,8 +69,6 @@ def register_edge_type(et: EdgeType) -> EdgeType:
             f"edge type {et.name!r}: the port needs an analytic jacobian_fn "
             "(it has no autodiff path)"
         )
-    if et.robust_weight_fn is not None:
-        raise ValueError(f"edge type {et.name!r}: robust losses are not ported yet")
     TYPE_REGISTRY["edge"][et.name] = et
     return et
 

@@ -1,9 +1,12 @@
 """Synthetic dataset generators (counterpart of ``slampp_tpu/io/datasets.py``).
 
-``make_manhattan`` (SE(2) pose graph) and ``make_city_trees`` (SE(2) poses
-and landmarks) are NumPy copies of the JAX package's generators: for the
-same arguments they emit byte-identical g2o text, so both packages optimize
-the same graph.
+``make_manhattan`` (SE(2) pose graph), ``make_city_trees`` (SE(2) poses
+and landmarks), ``make_sphere`` (SE(3) pose graph) and
+``make_sphere_landmarks`` (SE(3) poses and XYZ landmarks) are NumPy copies
+of the JAX package's generators: for the same arguments they emit
+byte-identical g2o text, so both packages optimize the same graph.
+``sphere_text`` is the sphere graph the port's apps run, at one ring per
+50 poses unless told otherwise.
 """
 
 from __future__ import annotations
@@ -11,6 +14,13 @@ from __future__ import annotations
 import numpy as np
 
 from slampp_tpu_torch.models.se2 import _np_rel_to_abs
+from slampp_tpu_torch.models.se3 import (
+    _np_aa_to_quat,
+    _np_quat_conj,
+    _np_quat_mul,
+    _np_quat_rotate,
+    _np_quat_to_aa,
+)
 
 
 def _np_abs_to_rel_se2(p1, p2):
@@ -158,3 +168,117 @@ def make_city_trees(
                 )
     # landmarks with zero observations simply never appear in the file
     return "\n".join(lines) + "\n", (gt, lms)
+
+
+def _np_abs_to_rel_se3(p1, p2):
+    q1 = _np_aa_to_quat(p1[3:6])
+    q2 = _np_aa_to_quat(p2[3:6])
+    q1i = _np_quat_conj(q1)
+    t = _np_quat_rotate(q1i, p2[0:3] - p1[0:3])
+    return np.concatenate([t, _np_quat_to_aa(_np_quat_mul(q1i, q2))])
+
+
+def make_sphere(
+    n_poses: int = 2500,
+    n_rings: int = 50,
+    radius: float = 20.0,
+    trans_noise: float = 0.05,
+    rot_noise: float = 0.02,
+    seed: int = 0,
+):
+    """SE(3) sphere pose graph (sphere2500-like): a spiral on a sphere with
+    ring-to-ring loop closures, as EDGE_SE3:AXISANGLE lines.  Returns
+    (g2o_text, ground_truth (n, 6))."""
+    rng = np.random.default_rng(seed)
+    per_ring = n_poses // n_rings
+    gt = np.zeros((n_poses, 6))
+    for i in range(n_poses):
+        ring = i // per_ring
+        a = 2 * np.pi * (i % per_ring) / per_ring
+        ele = np.pi * (ring + 1) / (n_rings + 1) - np.pi / 2
+        p = radius * np.array(
+            [np.cos(ele) * np.cos(a), np.cos(ele) * np.sin(a), np.sin(ele)]
+        )
+        # heading tangent to the ring
+        yaw_aa = np.array([0.0, 0.0, a + np.pi / 2])
+        gt[i] = np.concatenate([p, yaw_aa])
+
+    info = np.zeros(21)
+    it, ir = 1.0 / trans_noise**2, 1.0 / rot_noise**2
+    # row-major upper triangle of diag(it, it, it, ir, ir, ir)
+    for k, v in zip([0, 6, 11, 15, 18, 20], [it, it, it, ir, ir, ir]):
+        info[k] = v
+
+    def noisy_rel(a, b):
+        rel = _np_abs_to_rel_se3(gt[a], gt[b])
+        rel[0:3] += rng.normal(0, trans_noise, 3)
+        rel[3:6] += rng.normal(0, rot_noise, 3)
+        return rel
+
+    def line(a, b):
+        return ("EDGE_SE3:AXISANGLE %d %d " % (a, b)
+                + " ".join("%.9f" % x for x in noisy_rel(a, b))
+                + " " + " ".join("%.6f" % x for x in info))
+
+    lines = []
+    for i in range(1, n_poses):
+        lines.append(line(i - 1, i))
+        if i >= per_ring:  # loop closure to the pose below on the previous ring
+            lines.append(line(i - per_ring, i))
+    return "\n".join(lines) + "\n", gt
+
+
+def make_sphere_landmarks(
+    n_poses: int = 300,
+    n_rings: int = 10,
+    n_landmarks: int = 80,
+    radius: float = 20.0,
+    trans_noise: float = 0.05,
+    rot_noise: float = 0.02,
+    lm_noise: float = 0.05,
+    obs_radius: float = 12.0,
+    max_obs_per_pose: int = 3,
+    seed: int = 0,
+):
+    """SE(3) pose graph with XYZ landmarks (victoria-park-in-3D class): the
+    sphere trajectory observing scattered points through LANDMARK3:XYZ
+    edges.  Returns (g2o_text, (gt_poses, gt_landmarks))."""
+    text, gt = make_sphere(
+        n_poses=n_poses, n_rings=n_rings, radius=radius,
+        trans_noise=trans_noise, rot_noise=rot_noise, seed=seed,
+    )
+    rng = np.random.default_rng(seed + 1)
+    lms = rng.normal(0, radius * 0.6, (n_landmarks, 3))
+    info_lm = 1.0 / lm_noise**2
+    info6 = (info_lm, 0.0, 0.0, info_lm, 0.0, info_lm)
+    lines = [text.rstrip("\n")]
+    lm_id = {}  # first-appearance ids (the parser's incremental-order contract)
+    for i in range(n_poses):
+        d2 = np.sum((lms - gt[i, :3]) ** 2, axis=1)
+        near = np.flatnonzero(d2 < obs_radius**2)
+        rng.shuffle(near)
+        for l in near[:max_obs_per_pose]:
+            if l not in lm_id:
+                lm_id[l] = n_poses + len(lm_id)
+            q = _np_aa_to_quat(gt[i, 3:6])
+            h = _np_quat_rotate(_np_quat_conj(q), lms[l] - gt[i, 0:3])
+            h = h + rng.normal(0, lm_noise, 3)
+            lines.append(
+                "LANDMARK3:XYZ %d %d %.9f %.9f %.9f %.6f %.6f %.6f %.6f %.6f %.6f"
+                % (i, lm_id[l], *h, *info6)
+            )
+    return "\n".join(lines) + "\n", (gt, lms)
+
+
+def default_rings(n_poses: int) -> int:
+    """One ring per 50 poses (sphere2500: 50 rings, ``make_sphere``'s default)."""
+    return max(1, n_poses // 50)
+
+
+def sphere_text(n_poses: int, n_rings=None, seed: int = 0, landmarks: bool = False) -> str:
+    """The g2o text of the seed-``seed`` sphere graph (``default_rings``
+    unless ``n_rings``), with ``make_sphere_landmarks``' XYZ landmarks when
+    ``landmarks``."""
+    rings = default_rings(n_poses) if n_rings is None else n_rings
+    make = make_sphere_landmarks if landmarks else make_sphere
+    return make(n_poses=n_poses, n_rings=rings, seed=seed)[0]

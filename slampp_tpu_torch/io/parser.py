@@ -3,16 +3,20 @@
 
 ``parse_tokens``, ``parse_file`` and ``detect_problem`` are NumPy copies of
 the JAX package's (token-alias table and storage conversions of
-ParsePrimitives.h).  The port's ``build_system`` takes the SE(2) records
-(odometry, XY and range-bearing landmark observations) and consistency
-markers, with the JAX package's incremental hooks; a record kind whose model
-is not ported yet raises ``ValueError`` naming its ROADMAP.md item.
+ParsePrimitives.h); ``g2o_file`` hands generated g2o text to ``parse_file``.  The port's ``build_system`` takes the SE(2) records
+(odometry, XY and range-bearing landmark observations), the SE(3) records
+(odometry and XYZ landmark observations) and consistency markers, with the
+JAX package's incremental hooks; a record kind whose model is not ported
+yet raises ``ValueError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Iterable, List, Optional
+import os
+import tempfile
+from typing import Iterable, Iterator, List, Optional
 
 import numpy as np
 
@@ -245,6 +249,19 @@ def parse_file(path: str, max_lines: Optional[int] = None) -> List[ParsedRecord]
     return out
 
 
+@contextlib.contextmanager
+def g2o_file(text: str) -> Iterator[str]:
+    """The path of a temporary file holding ``text`` (generated g2o text),
+    for ``parse_file``; the file is removed when the block ends."""
+    with tempfile.NamedTemporaryFile("w", suffix=".g2o", delete=False) as f:
+        f.write(text)
+        path = f.name
+    try:
+        yield path
+    finally:
+        os.unlink(path)
+
+
 def detect_problem(records: Iterable[ParsedRecord]) -> str:
     """Auto-detect the problem type from (peeked) records.
 
@@ -273,7 +290,6 @@ def detect_problem(records: Iterable[ParsedRecord]) -> str:
 
 # record kinds whose models are not ported yet -> their ROADMAP.md queue 1 item
 _NOT_PORTED = {
-    **dict.fromkeys(("edge3", "landmark3_xyz"), "item 5 (SE(3))"),
     **dict.fromkeys(("vertex_xyz", "vertex_cam", "vertex_scam", "vertex_intrinsics",
                      "edge_p2c", "edge_p2ci", "edge_p2sc"), "item 6 (BA)"),
     **dict.fromkeys(("vertex_spheron", "edge_spheron_xyz", "vertex_posvel", "vertex_rocv_lm",
@@ -281,11 +297,13 @@ _NOT_PORTED = {
                     "item 10 (Sim(3), ROCV and Spheron)"),
 }
 
-# SE(2) record kind -> (edge type, initializers attribute of models.se2)
-_SE2_EDGES = {
-    "edge2": ("edge_pose2d", "POSE_POSE_INITIALIZERS"),
-    "landmark2_xy": ("edge_pose_landmark2d_xy", "POSE_LANDMARK_XY_INITIALIZERS"),
-    "landmark2_rb": ("edge_pose_landmark2d_rb", "POSE_LANDMARK_RB_INITIALIZERS"),
+# pose-graph record kind -> (model module, edge type, initializers attribute)
+_EDGES = {
+    "edge2": ("se2", "edge_pose2d", "POSE_POSE_INITIALIZERS"),
+    "landmark2_xy": ("se2", "edge_pose_landmark2d_xy", "POSE_LANDMARK_XY_INITIALIZERS"),
+    "landmark2_rb": ("se2", "edge_pose_landmark2d_rb", "POSE_LANDMARK_RB_INITIALIZERS"),
+    "edge3": ("se3", "edge_pose3d", "POSE_POSE3D_INITIALIZERS"),
+    "landmark3_xyz": ("se3", "edge_pose_landmark3d", "POSE_LANDMARK3D_INITIALIZERS"),
 }
 
 
@@ -309,8 +327,9 @@ def build_system(
     composing measurements.  A record whose model is not ported raises
     ``ValueError`` naming its ROADMAP.md item.  Returns the populated system."""
     from slampp_tpu_torch.graph.system import GraphSystem
-    from slampp_tpu_torch.models import se2 as m_se2
+    from slampp_tpu_torch.models import se2, se3
 
+    models = {"se2": se2, "se3": se3}
     del problem
     if system is None:
         system = GraphSystem()
@@ -324,12 +343,12 @@ def build_system(
             # ground truth of pose problems, data-association hints and
             # ROCV phase delimiters: bookkeeping only, as in the JAX package
             continue
-        if k not in _SE2_EDGES:
+        if k not in _EDGES:
             item = _NOT_PORTED.get(k)
             raise ValueError(f"unhandled record kind {k!r}" + (
                 f": its model is not ported yet (ROADMAP.md queue 1 {item})" if item else ""))
-        etype, inits = _SE2_EDGES[k]
-        system.add_edge(etype, rec.ids, rec.values, rec.info, getattr(m_se2, inits))
+        model, etype, inits = _EDGES[k]
+        system.add_edge(etype, rec.ids, rec.values, rec.info, getattr(models[model], inits))
         if on_edge is not None:
             on_edge(system, system.n_edges)
     return system

@@ -60,7 +60,8 @@ _CR_BASE = 8  # chain length at which cyclic reduction hands off to a dense fact
 
 def _small_inv(A: torch.Tensor) -> torch.Tensor:
     """Batched inverse of tiny SPD blocks (..., bs, bs): closed forms for
-    bs <= 3, as in the JAX package (numerical parity), else a library
+    bs <= 3 and the blocked 2 x 2-of-3 x 3 Schur inverse for bs == 6 (SE(3)
+    pose blocks), as in the JAX package (numerical parity), else a library
     inverse."""
     bs = A.shape[-1]
     if bs == 1:
@@ -89,6 +90,16 @@ def _small_inv(A: torch.Tensor) -> torch.Tensor:
             -2,
         )
         return adj * inv_det[..., None, None]
+    if bs == 6:
+        A11, A12 = A[..., :3, :3], A[..., :3, 3:]
+        A21, A22 = A[..., 3:, :3], A[..., 3:, 3:]
+        iA11 = _small_inv(A11)
+        iA11_A12 = iA11 @ A12
+        iS = _small_inv(A22 - A21 @ iA11_A12)
+        B12 = -(iA11_A12 @ iS)
+        B21 = -(iS @ (A21 @ iA11))
+        B11 = iA11 - iA11_A12 @ B21
+        return torch.cat([torch.cat([B11, B12], -1), torch.cat([B21, iS], -1)], -2)
     return torch.linalg.inv(A)
 
 
@@ -636,7 +647,8 @@ def _chain_rhs_reduce(p: V3Plan, v):
 def _separator(p: V3Plan, Ass, gs, C, v):
     """Factor SC = Ass - place(C) with the Cholesky kernel; rhs_s = gs - place(v)."""
     SC = Ass - _pad_sq(_chain_sc_reduce(p, C), p.Ms)
-    Ls = dk.chol_batched(SC[None].contiguous())  # (1, Ms, Ms)
+    with record_function("v3.separator"):  # nested in v3.factor
+        Ls = dk.chol_batched(SC[None].contiguous())  # (1, Ms, Ms)
     rhs_s = gs - F.pad(_chain_rhs_reduce(p, v), (0, p.Ms - p.SB * p.bs))
     return Ls, rhs_s
 

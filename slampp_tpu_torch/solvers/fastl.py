@@ -37,10 +37,11 @@ The reference's FastL is a CPU solver too: the host system is the design,
 not a fallback.  The device work is ``chi2()`` and the final ``optimize()``
 (the windowed solver's float64 partitioned batch on ``device``).
 
-Requires NumPy model kernels for every edge and vertex type in the system
-(models/np_kernels.py — the SE(2) family); any other type raises
-NotImplementedError: the JAX package's device-kernel adapter for them is
-ROADMAP.md queue 1 item 5.
+The SE(2) family has NumPy model kernels (models/np_kernels.py); every
+other type (SE(3), ...) goes through models/torch_kernel_adapter.py, its
+torch callables on CPU float64 tensors, as the JAX package's FastL takes its
+jitted adapter.  Robust edges are refused (``supports_system``), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from scipy.linalg.lapack import dpotrf, dtrtrs
 
 from slampp_tpu_torch.graph.system import GraphSystem
 from slampp_tpu_torch.graph.types import get_edge_type, get_vertex_type
+from slampp_tpu_torch.models import torch_kernel_adapter as adapter
 from slampp_tpu_torch.models.np_kernels import (
     NP_EDGE_LIN,
     NP_LOCAL_DIFF,
@@ -64,25 +66,22 @@ _JITTER0 = 1e-12
 
 
 def supports_system(system: GraphSystem) -> bool:
-    """True when every vertex shares one block size (the separator
-    Schur-prior bookkeeping, inherited from the windowed solver, assumes
-    one).  The JAX package also refuses robust edges, which the port does
-    not have yet (ROADMAP.md queue 1 item 7)."""
+    """True unless robust weighting is in play (IRLS edges run through the
+    windowed and batch solvers) or the vertices differ in block size (the
+    separator Schur-prior bookkeeping, inherited from the windowed solver,
+    assumes one), as in the JAX package."""
+    if any(get_edge_type(t).robust_weight_fn is not None for t in system.edge_type_names):
+        return False
     dims = {
         get_vertex_type(t).dim for t in system.vertex_type_names
     }
     return len(dims) <= 1
 
 
-_NO_KERNELS = ("FastLSolver: no NumPy kernel for {!r}; the device-kernel adapter "
-               "for such types is not ported yet (ROADMAP.md queue 1 item 5)")
-
-
-def _np_kernel(registry: dict, tname: str):
+def _np_kernel(registry: dict, make, tname: str):
+    """The type's NumPy kernel, else the torch adapter ``make(tname)``."""
     fn = registry.get(tname)
-    if fn is None:
-        raise NotImplementedError(_NO_KERNELS.format(tname))
-    return fn
+    return fn if fn is not None else make(tname)
 
 
 class _EdgeStore:
@@ -177,15 +176,14 @@ class FastLSolver(WindowedIncrementalSolver):
         self._pr_cache = None
         self._sep_cache = None
 
-    # a type without NumPy kernels raises here, at its first use
     def _edge_lin_fn(self, tname: str):
-        return _np_kernel(NP_EDGE_LIN, tname)
+        return _np_kernel(NP_EDGE_LIN, adapter.make_edge_lin, tname)
 
     def _retract_fn(self, tname: str):
-        return _np_kernel(NP_RETRACT, tname)
+        return _np_kernel(NP_RETRACT, adapter.make_retract, tname)
 
     def _ldiff_fn(self, tname: str):
-        return _np_kernel(NP_LOCAL_DIFF, tname)
+        return _np_kernel(NP_LOCAL_DIFF, adapter.make_local_diff, tname)
 
     # ------------------------------------------------------------- state views
     def _cur_state(self, vid: int) -> np.ndarray:

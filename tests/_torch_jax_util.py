@@ -2,20 +2,17 @@
 both packages, and hand JAX objects to the port as NumPy arrays through
 slampp_tpu_torch.interop."""
 
+import contextlib
 import os
-import tempfile
 
 import numpy as np
 
 
 def _with_text_file(text, fn):
-    with tempfile.NamedTemporaryFile("w", suffix=".g2o", delete=False) as f:
-        f.write(text)
-        path = f.name
-    try:
+    from slampp_tpu_torch.io.parser import g2o_file
+
+    with g2o_file(text) as path:
         return fn(path)
-    finally:
-        os.unlink(path)
 
 
 def jax_system(n_poses, seed=0, loop_prob=0.1):
@@ -31,6 +28,27 @@ def port_system(n_poses, seed=0, loop_prob=0.1):
     from slampp_tpu_torch.io.parser import build_system, parse_file
 
     text, _ = make_manhattan(n_poses=n_poses, loop_prob=loop_prob, seed=seed)
+    return _with_text_file(text, lambda p: build_system(parse_file(p)))
+
+
+def jax_sphere_text(n_poses, n_rings=None, seed=0, landmarks=False):
+    """The JAX package's generator on the port's ``io/datasets.sphere_text``
+    arguments (``default_rings`` unless ``n_rings``)."""
+    from slampp_tpu.io.datasets import make_sphere, make_sphere_landmarks
+
+    from slampp_tpu_torch.io.datasets import default_rings
+
+    rings = default_rings(n_poses) if n_rings is None else n_rings
+    make = make_sphere_landmarks if landmarks else make_sphere
+    return make(n_poses=n_poses, n_rings=rings, seed=seed)[0]
+
+
+def jax_sphere_system(n_poses, n_rings=None, seed=0, landmarks=False):
+    """The JAX package's sphere graph, as the port's ``apps/sphere.sphere_system``
+    builds its own."""
+    from slampp_tpu.io.parser import build_system, parse_file
+
+    text = jax_sphere_text(n_poses, n_rings, seed, landmarks)
     return _with_text_file(text, lambda p: build_system(parse_file(p)))
 
 
@@ -134,6 +152,54 @@ def assert_segments_equal(a, b):
         np.testing.assert_array_equal(x.idx.numpy(), np.asarray(y.idx))
 
 
+@contextlib.contextmanager
+def jax_jacobians(kind="from_f64", factor=1.0, names=("edge_pose3d",), seed=0):
+    """Within the block, the JAX package's edge types ``names`` take other
+    Jacobians: with ``kind="from_f64"`` jacfwd in float64, rounded to the
+    input's dtype (what the port's analytic float32 Jacobians are to ~1e-7;
+    JAX's jacfwd through float32 quaternion round trips rounds further off,
+    which moves an unconverged mixed-precision trajectory by more than the
+    precision it compares); with ``kind="scaled"`` its own times ``factor``
+    (1 +- 6e-8 is one float32 rounding); with ``kind="noisy"`` the float64
+    ones times 1 + ``factor`` * N(0, 1), a fixed pattern per entry drawn
+    from ``seed``, then rounded."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from slampp_tpu import models  # noqa: F401  (registers the types)
+    from slampp_tpu.core.assembly import _edge_residual_and_jacobians
+    from slampp_tpu.graph import types
+
+    saved = {n: types.get_edge_type(n) for n in names}
+
+    def jacobian_fn(et):
+        vts = tuple(types.get_vertex_type(t) for t in et.vertex_types)
+
+        def fn(states, meas):
+            if kind == "scaled":
+                r, jacs = _edge_residual_and_jacobians(et, vts, states, meas)
+                return r, tuple(j * factor for j in jacs)
+            r, jacs = _edge_residual_and_jacobians(
+                et, vts, tuple(x.astype(jnp.float64) for x in states), meas.astype(jnp.float64))
+            if kind == "noisy":
+                jacs = tuple(j * (1 + factor * jax.random.normal(
+                    jax.random.PRNGKey(seed * 10 + i), j.shape, jnp.float64))
+                    for i, j in enumerate(jacs))
+            dt = states[0].dtype
+            return r.astype(dt), tuple(j.astype(dt) for j in jacs)
+
+        return fn
+
+    try:
+        for n, et in saved.items():
+            types.TYPE_REGISTRY["edge"][n] = dataclasses.replace(et, jacobian_fn=jacobian_fn(et))
+        yield
+    finally:
+        types.TYPE_REGISTRY["edge"].update(saved)
+
+
 def jax_batch_solver(system, nls, engine=None):
     """The JAX package's batch solver as its CLI builds it for an SE(2) pose
     graph (``slampp_tpu/apps/main.py:195-228``), ``engine`` overriding the
@@ -149,18 +215,27 @@ def jax_batch_solver(system, nls, engine=None):
     return GaussNewtonSolver(system, use_schur=False)
 
 
-def jax_solver_reference(n_poses, nls, engine=None, max_iters=5, min_dx=0.01):
+def jax_solver_reference(n_poses, nls, engine=None, max_iters=5, min_dx=0.01, system=None,
+                         robust=None):
     """(chi2 after ``optimize``, iterations applied) of the JAX package on
-    the seed-0 Manhattan graph."""
-    system = jax_system(n_poses)
+    ``system`` (default: the seed-0 Manhattan graph); ``robust`` = (loss,
+    on_chi2) first rebinds its edge types, as the CLI's ``--robust``."""
+    if system is None:
+        system = jax_system(n_poses)
+    if robust is not None:
+        from slampp_tpu.models.robust import apply_robust_to_system
+
+        apply_robust_to_system(system, loss=robust[0], on_chi2=robust[1])
     solver = jax_batch_solver(system, nls, engine)
     applied = solver.optimize(max_iters, min_dx)
     return float(solver.chi2()), int(applied)
 
 
-def jax_incremental(n_poses, engine, seed=0, loop_prob=0.1, live_engine=None, **kw):
+def jax_incremental(n_poses, engine, seed=0, loop_prob=0.1, live_engine=None,
+                    graph="manhattan", **kw):
     """The JAX package's incremental solver ("fastl", "windowed" or
-    "every-n") streamed over the seed-``seed`` Manhattan graph as the
+    "every-n") streamed over the seed-``seed`` Manhattan graph (or with
+    ``graph="sphere"`` the sphere of one ring per 50 poses) as the
     port's ``apps/incremental.run_incremental`` drives its own: every-vertex
     cadence unless ``kw`` says otherwise, one ``incremental_step`` per edge
     from the parser's ``on_edge`` hook, then ``refresh_frozen``.
@@ -175,7 +250,10 @@ def jax_incremental(n_poses, engine, seed=0, loop_prob=0.1, live_engine=None, **
 
     cls = {"fastl": FastLSolver, "windowed": WindowedIncrementalSolver,
            "every-n": IncrementalSolver}[engine]
-    text, _ = make_manhattan(n_poses=n_poses, loop_prob=loop_prob, seed=seed)
+    if graph == "sphere":
+        text, problem = jax_sphere_text(n_poses, seed=seed), "se3"
+    else:
+        text, problem = make_manhattan(n_poses=n_poses, loop_prob=loop_prob, seed=seed)[0], "se2"
     system = GraphSystem()
     saved = os.environ.get("SLAMPP_INC_LIVE_ENGINE")
     if live_engine is not None:
@@ -189,7 +267,7 @@ def jax_incremental(n_poses, engine, seed=0, loop_prob=0.1, live_engine=None, **
             else:
                 os.environ["SLAMPP_INC_LIVE_ENGINE"] = saved
     _with_text_file(text, lambda p: build_system(
-        parse_file(p), problem="se2", system=system,
+        parse_file(p), problem=problem, system=system,
         on_edge=lambda s, n: inc.incremental_step()))
     if hasattr(inc, "refresh_frozen"):
         inc.refresh_frozen()
@@ -233,6 +311,158 @@ def jax_native_fused(system, engine, panel, n_iters=5):
     return states, float(chi0), float(graph_chi2(graph.replace_states(states)))
 
 
+def jax_v3_fused(system, mixed=True, n_iters=5, target=64, refine=0):
+    """The JAX package's ``PartitionedSolver.optimize_fused`` as the port's
+    ``apps/manhattan.run`` drives its own: (states, chi2 before, chi2 after,
+    plan)."""
+    from slampp_tpu.linear.partitioned import PartitionedSolver
+
+    ps = PartitionedSolver(system, target=target, mixed_precision=mixed, refine_iters=refine)
+    ps.symbolic()
+    states, _, chi0, chi2 = ps.optimize_fused(system.snapshot(), n_iters=n_iters)
+    p = ps.plan
+    return states, float(chi0), float(chi2), {"K": p.K, "M": p.M, "S": p.S, "SB": p.SB,
+                                              "Ms": p.Ms, "ch_ok": int(p.ch_ok)}
+
+
+def jax_sphere_references():
+    """chip_smoke.py's sphere phases on the JAX package, one JSON-able dict
+    per phase (the port's apps/sphere and apps/incremental graphs)."""
+    out = {}
+    for phase, n, mixed in (("sphere", 2500, True), ("sphere-exact", 1000, False)):
+        _, chi0, chi2, plan = jax_v3_fused(jax_sphere_system(n), mixed)
+        out[phase] = {"n_poses": n, "chi2_init": chi0, "chi2_final": chi2, "plan": plan}
+    for phase, nls, engine, robust, iters in (("sphere-lm-v3", "lambda-lm", "v3", None, 5),
+                                              ("sphere-dl-v3", "lambda-dl", "v3", None, 20),
+                                              ("sphere-gn", "lambda", None, None, 5),
+                                              ("robust", "lambda-lm", "v3", ("cauchy", True), 5)):
+        chi2, applied = jax_solver_reference(2500, nls, engine, iters,
+                                             system=jax_sphere_system(2500), robust=robust)
+        out[phase] = {"n_poses": 2500, "chi2_final": chi2, "applied": applied}
+    # dogleg after the CLI's 5 iterations, with the float32 Jacobians rounded
+    # from float64 (what the port's analytic ones are; see jax_jacobians)
+    with jax_jacobians():
+        chi2, applied = jax_solver_reference(2500, "lambda-dl", "v3", 5,
+                                             system=jax_sphere_system(2500))
+    out["sphere-dl-v3-5"] = {"n_poses": 2500, "chi2_final": chi2, "applied": applied}
+    _, _, out["sphere-gn"]["v2-p1"] = jax_native_fused(jax_sphere_system(2500), "v2", 1)
+    chi2, applied = jax_solver_reference(
+        300, "lambda-lm", system=jax_sphere_system(300, 10, landmarks=True))
+    out["sphere-landmarks"] = {"n_poses": 300, "chi2_final": chi2, "applied": applied}
+    out["fastl-se3"] = {"n_poses": 500, **jax_incremental_reference(500, "fastl", graph="sphere")}
+    return out
+
+
+def fastl_se3_sensitivity(n_poses=500, jax_seeds=13, port_seeds=3):
+    """FastL on the sphere (one ring per 50 poses) at every vertex, run
+    many ways: the JAX package as it is; with its SE(3) Jacobians scaled by
+    1 +- 1e-14 and its retraction by 1 + 1e-15; with its Jacobians times
+    1 + 1e-15 N(0, 1) per entry (``noisy_lin``), seeds 1 to ``jax_seeds``;
+    the port on the CPU as it is and with the same noise, seeds 1 to
+    ``port_seeds``; and the port with one, and with all three, of the JAX
+    package's kernel adapters in place of its own.  Returns each run's
+    streamed chi2, counters, optimize() return and final chi2: how far the
+    reference's own trajectory moves with its kernels' rounding, and which
+    of the port's adapters its own run depends on."""
+    import numpy as np
+
+    from slampp_tpu.models import jax_kernel_adapter as ja
+
+    from slampp_tpu_torch.apps.incremental import run_incremental
+    from slampp_tpu_torch.models import torch_kernel_adapter as ta
+
+    keys = ("n_solves", "n_freezes", "n_refreezes", "n_relin")
+    makers = ("make_edge_lin", "make_retract", "make_local_diff")
+
+    def jax_run():
+        return jax_incremental_reference(n_poses, "fastl", graph="sphere")
+
+    def port_run():
+        r = run_incremental(n_poses, "cpu", "fastl", graph="sphere")
+        return {"chi2_stream": r["chi2_stream"], **{k: r["counters"][k] for k in keys},
+                "optimize_return": r["optimize_return"], "chi2_final": r["chi2_final"]}
+
+    def scaled_lin(orig, f):
+        def make(name):
+            fn = orig(name)
+
+            def call(slot_states, meas):
+                r, jacs = fn(slot_states, meas)
+                return r, tuple(j * f for j in jacs)
+
+            call.arity = fn.arity
+            return call
+        return make
+
+    def noisy_lin(orig, seed, eps=1e-15):
+        rng = np.random.default_rng(seed)
+
+        def make(name):
+            fn = orig(name)
+
+            def call(slot_states, meas):
+                r, jacs = fn(slot_states, meas)
+                return r, tuple(np.asarray(j) * (1 + eps * rng.standard_normal(np.shape(j)))
+                                for j in jacs)
+
+            call.arity = fn.arity
+            return call
+        return make
+
+    def scaled_retract(orig, f):
+        return lambda name: (lambda s, d, fn=orig(name): fn(s, d) * f)
+
+    def with_makers(module, replace, run):
+        saved = {m: getattr(module, m) for m in makers}
+        try:
+            for m, fn in replace.items():
+                setattr(module, m, fn)
+            return run()
+        finally:
+            for m, fn in saved.items():
+                setattr(module, m, fn)
+
+    lin, ret = ja.make_edge_lin, ja.make_retract
+    out = {"jax": jax_run()}
+    for label, replace in (
+            ("jax, J x (1 + 1e-14)", {"make_edge_lin": scaled_lin(lin, 1 + 1e-14)}),
+            ("jax, J x (1 - 1e-14)", {"make_edge_lin": scaled_lin(lin, 1 - 1e-14)}),
+            ("jax, retract x (1 + 1e-15)", {"make_retract": scaled_retract(ret, 1 + 1e-15)}),
+            *((f"jax, J x (1 + 1e-15 N), seed {k}", {"make_edge_lin": noisy_lin(lin, k)})
+              for k in range(1, jax_seeds + 1))):
+        out[label] = with_makers(ja, replace, jax_run)
+    out["port"] = port_run()
+    for k in range(1, port_seeds + 1):
+        out[f"port, J x (1 + 1e-15 N), seed {k}"] = with_makers(
+            ta, {"make_edge_lin": noisy_lin(ta.make_edge_lin, k)}, port_run)
+    for m in makers:
+        out[f"port, JAX's {m}"] = with_makers(ta, {m: getattr(ja, m)}, port_run)
+    out["port, JAX kernel adapters"] = with_makers(
+        ta, {m: getattr(ja, m) for m in makers}, port_run)
+    return out
+
+
+def mixed_solver_sensitivity(n_poses=2500, seeds=6):
+    """LM and dogleg on the mixed v3 engine on the sphere (one ring per 50
+    poses), the JAX package's run as it is, with its float32 Jacobians
+    rounded from float64, and scaled by 1 +- 6e-8; dogleg also with the
+    float64 Jacobians times 1 + 6e-8 N(0, 1) per entry, seeds 1 to
+    ``seeds``, then rounded: (chi2, applied) of each, how far the
+    reference's own 5-iteration result moves with float32 rounding."""
+    runs = (("as is", contextlib.nullcontext), ("J from f64", jax_jacobians),
+            ("J x (1 + 6e-8)", lambda: jax_jacobians("scaled", 1 + 6e-8)),
+            ("J x (1 - 6e-8)", lambda: jax_jacobians("scaled", 1 - 6e-8)))
+    noisy = tuple((f"J from f64 x (1 + 6e-8 N), seed {k}",
+                   lambda k=k: jax_jacobians("noisy", 6e-8, seed=k)) for k in range(1, seeds + 1))
+    out = {}
+    for nls in ("lambda-lm", "lambda-dl"):
+        for label, ctx in runs + (noisy if nls == "lambda-dl" else ()):
+            with ctx():
+                out[f"{nls} v3, {label}"] = jax_solver_reference(
+                    n_poses, nls, "v3", system=jax_sphere_system(n_poses))
+    return out
+
+
 def jax_marginals_reference(n_poses):
     """chip_smoke.py's marginals reference: the seed-0 Manhattan graph after
     5 fused GN iterations (v2, panel 8), then the dense ``update_batch``:
@@ -273,6 +503,18 @@ if __name__ == "__main__":
     # and for its native, marginals and eigen phases (a few GB for the dense
     # marginals' 10500 x 10500 H at 3500 poses):
     #   python tests/_torch_jax_util.py --native [n_poses]
+    # and for its sphere phases (sphere2500 v3 and batch solvers, sphere1000
+    # v3 in f64, the sphere landmarks, FastL at sphere500):
+    #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --sphere
+    # and how far FastL's sphere500 trajectory moves with kernel rounding
+    # (the JAX package perturbed, 13 noise seeds; the port as it is and
+    # under 3 noise seeds; the port on each of the JAX kernel adapters and
+    # on all three; 25 runs, about half an hour on one core):
+    #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --fastl-se3
+    # and how far the mixed v3 LM / dogleg results at sphere2500 move with
+    # float32 rounding of the JAX package's Jacobians (14 runs, about half
+    # an hour):
+    #   python tests/_torch_jax_util.py --mixed-sensitivity
     import json
     import sys
 
@@ -283,6 +525,18 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     import slampp_tpu  # noqa: F401  (x64 at import)
 
+    if "--mixed-sensitivity" in sys.argv:
+        for run, (chi2, applied) in mixed_solver_sensitivity().items():
+            print(json.dumps({"run": run, "chi2": chi2, "applied": applied}), flush=True)
+        sys.exit(0)
+    if "--fastl-se3" in sys.argv:
+        for run, res in fastl_se3_sensitivity().items():
+            print(json.dumps({"run": run, **res}), flush=True)
+        sys.exit(0)
+    if "--sphere" in sys.argv:
+        for phase, ref in jax_sphere_references().items():
+            print(json.dumps({"phase": phase, **ref}), flush=True)
+        sys.exit(0)
     if "--incremental" in sys.argv:
         for phase, n, engine, kw in (
                 ("fastl", 800, "fastl", {}),

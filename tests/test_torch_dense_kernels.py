@@ -250,6 +250,14 @@ def test_cuda_chol_beyond_largest_m_raises(cuda, dtype, M):
         dk.chol_batched(torch.eye(M, device=cuda, dtype=dtype)[None])
 
 
+# the sphere2500 graph's f64 separator (Ms = 3952) is beyond chol_kernel's
+# largest f64 M (3104): the exact v3 engine must raise there, not return
+@pytest.mark.gpu
+def test_cuda_chol_sphere2500_f64_separator_raises(cuda):
+    with pytest.raises(RuntimeError, match=r"^chol_batched: CUDA launch failed"):
+        dk.chol_batched(torch.eye(3952, device=cuda, dtype=torch.float64)[None])
+
+
 def _check_trsm(bwd, L, B):
     """A TRSM kernel against its plain version: f64 max |kernel - plain|
     over max |plain| within 1e-10; f32 relative residual within 1e-4."""

@@ -7,11 +7,9 @@ call takes its plain PyTorch version.  Tolerances: kernels 1e-12; FastL
 streamed chi2 1e-9 relative, states 1e-9, final chi2 1e-8; windowed chi2
 1e-8 relative; discrete counters equal."""
 
-import os
 import re
 import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -58,13 +56,8 @@ EDGES = ["edge_pose2d", "edge_pose_landmark2d_xy", "edge_pose_landmark2d_rb"]
 
 def _parse(text):
     """(port records, JAX records) of one g2o text."""
-    with tempfile.NamedTemporaryFile("w", suffix=".g2o", delete=False) as f:
-        f.write(text)
-        path = f.name
-    try:
+    with parser.g2o_file(text) as path:
         return parser.parse_file(path), jax_parser.parse_file(path)
-    finally:
-        os.unlink(path)
 
 
 def _stream(solver_of, text):
@@ -291,15 +284,19 @@ def test_fastl_per_step_path_stays_on_the_host(monkeypatch):
 
 def test_fastl_gating_and_missing_kernels():
     """supports_system checks block sizes (a pose + landmark graph mixes 3
-    and 2); a type without NumPy kernels raises naming its queue-1 item."""
+    and 2); a type without NumPy kernels takes the torch kernel adapter
+    (models/torch_kernel_adapter.py), as the JAX package takes its own."""
     text = make_city_trees(n_poses=60, n_landmarks=20, seed=1)[0]
     system = parser.build_system(_parse(text)[0])
     assert not supports_system(system)
     manhattan = parser.build_system(_parse(make_manhattan(n_poses=30, seed=1)[0])[0])
     assert supports_system(manhattan)
     inc = FastLSolver(manhattan, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        inc._edge_lin_fn("edge_pose3d")
+    assert inc._edge_lin_fn("edge_pose2d") is npk.NP_EDGE_LIN["edge_pose2d"]
+    lin = inc._edge_lin_fn("edge_pose3d")
+    r, (j0, j1) = lin((np.zeros((2, 6)), np.zeros((2, 6))), np.zeros((2, 6)))
+    assert lin.arity == 2 and r.shape == (2, 6) and j0.shape == j1.shape == (2, 6, 6)
+    assert inc._retract_fn("pose3d")(np.zeros((1, 6)), np.ones((1, 6))).shape == (1, 6)
 
 
 # -------------------------------------------------------------------- windowed
