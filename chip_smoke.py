@@ -10,17 +10,19 @@ the run with a non-zero exit code and no result line:
   2. build    the hand-written kernels from slampp_tpu_torch/csrc;
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes, in float32 and float64, with frozen
-              pivots; the Cholesky also at the exact mode's f64 shapes and
-              the first M on each side of its resident / streaming
-              boundary, the TRSMs at an M beyond the resident slab size
-              and one at which each x_p is pulled, not pushed; timed
-              against the plain version and the library call
-              (torch.linalg.cholesky_ex for the Cholesky; the TRSMs' plain
-              version is torch.linalg.solve_triangular) with CUDA events
-              around 20 calls (ms, host launch path included) and as device
-              time per launch from torch.profiler (device_ms), beside the
-              bound (bound_ms: the card's least time for the call's bytes
-              or FLOPs at its peak rates);
+              pivots; the Cholesky in each of its three forms (resident,
+              streaming, large), at the exact mode's f64 shapes, the first
+              M on each side of its resident / streaming boundary, the
+              separators (1, 3952) in both dtypes and (1, 6400) in f64,
+              the TRSMs at an M beyond the resident slab size and one at
+              which each x_p is pulled, not pushed; timed against the plain
+              version and the library call (torch.linalg.cholesky_ex for
+              the Cholesky; the TRSMs' plain version is
+              torch.linalg.solve_triangular) with CUDA events around 20
+              calls (ms, host launch path included) and as device time per
+              launch from torch.profiler (device_ms), beside the bound
+              (bound_ms: the card's least time for the call's bytes or FLOPs
+              at its peak rates);
   4. main     manhattan3500, mixed precision, chain mode, target 64,
               refine 0, 5 fused GN iterations; chi2 within 5e-3 of the f64
               oracle 404.504, every kernel launched by that run;
@@ -87,18 +89,17 @@ the run with a non-zero exit code and no result line:
               frames, 5 fused GN iterations, a first call and 3 repeats:
               chi2 within 5e-3 of the JAX package's, the plan K = 40, Ms =
               3952, all three kernels launched;
-  sphere-f64-limit  the same graph through the v3 engine in float64: the
-              (1, 3952, 3952) f64 separator is beyond chol_kernel's largest
-              f64 M (3104), so chol_batched must raise, not return;
+  sphere-f64  the same graph through the v3 engine in float64 (separator
+              (1, 3952, 3952) f64, the Cholesky's large form): chi2 within
+              1e-8 of the JAX package's f64 optimum, all launches f64;
   sphere-exact  sphere1000 (20 rings), v3 in float64: chi2 within 1e-6;
   sphere-lm-v3, sphere-dl-v3  the batch solvers on sphere2500 on the v3
               engine (mixed, refine 2): chi2 within 5e-3 and the same
               iterations applied as JAX's, kernels launched; dogleg runs to
               its minimum |dx| (at most 20 iterations);
   sphere-dl-v3-5  dogleg after the CLI's 5 iterations: 5 applied, kernels
-              launched, its chi2 printed beside JAX's with float32
-              Jacobians rounded from float64, not bounded (see
-              SPHERE_SOLVER_PHASES);
+              launched, chi2 within 5e-3 of JAX's with float32 Jacobians
+              rounded from float64 (see SPHERE_SOLVER_PHASES);
   sphere-gn   sphere2500 through -nls lambda (GaussNewtonSolver, the native
               v1 engine: the CLI's default) and the v2 engine eager and as
               optimize_fused's CUDA graph: chi2 within 1e-6 of JAX's and the
@@ -118,9 +119,26 @@ the run with a non-zero exit code and no result line:
               optimize within 1e-3 (TOL_FASTL_SE3: the trajectory follows
               the kernels' rounding, in the JAX package too); the streamed
               chi2 and optimize()'s return printed beside JAX's.
+  (after sphere-landmarks: bundle adjustment, apps/ba, against JAX_REF)
+  ba-venice   bench_venice's loop on the port: the seed-0 venice871-class
+              scene (871 cameras, 110,000 points, mean track 10), the
+              observation-driven Schur LM (BigBASolver, float32 SC), a first
+              step and 5 LM iterations with min_dx_norm 0: the JAX package's
+              accepted steps, chi2 within 5e-3 of its CPU run;
+  ba-venice-f64  the same with the float64 SC of float64 pair products:
+              within 1e-6 (with float32 pair products the float64 SC's run
+              follows their rounding, in the JAX package too: TOL_BA);
+  ba-schur    LM with the dense Schur engine (use_schur) on make_ba_scene
+              (20 cameras, 500 points): chi2 within 1e-6, the same applied;
+  city-schur-sparse  cityTrees10k (make_city_trees(10000, 100)) with
+              dogleg "auto", which takes the sparse Schur engine: chi2
+              within 5e-3, the same applied, all three kernels launched;
+  ba-marginals  the Schur marginals of make_ba_scene's Hessian + 1e-2 I:
+              traces and camera 0's / landmark 0's blocks within 1e-6.
 Each phase's launches are counted from zero over that phase alone.  The
 whole script takes about seven minutes on an H100, the kernels' build
-included.
+included.  The kernel summary gives each kernel's times at the main path's
+shape and, under "shapes", at every timed shape.
 
 Then the kernel summary (JSON), the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
@@ -193,12 +211,43 @@ JAX_REF = {
     # Jacobians rounded from float64 (tests/_torch_jax_util.jax_jacobians)
     "sphere-dl-v3-5": (2818619.226708726, 5),
     "sphere-gn": (14658.562139146195, 5),
+    # sphere2500 v3 GN in float64 (the f64 separator (1, 3952, 3952)): the
+    # JAX package's f64 optimum
+    "sphere-f64": 14658.562139146195,
     "sphere-gn-v2": 14658.562139146192,
     "robust": (19837.69389440896, 5),
     "sphere-landmarks": (4007.8272884259663, 5),
     "fastl-se3": {"n_poses": 500, "chi2_stream": 2719.5259211599614, "n_solves": 499,
                   "n_freezes": 5, "n_refreezes": 0, "n_relin": 622, "optimize_return": 3,
                   "chi2_final": 2633.8160198909923},
+    # the BA phases (apps/ba), by
+    #   python tests/_torch_jax_util.py --ba
+    # (on an 8-core CPU beside other work: the venice runs 40 and 64 s,
+    # cpu_seconds; the cityTrees10k dogleg a few minutes).  ba-venice / ba-venice-f64: bench_venice's loop (a first
+    # step, 5 LM iterations with min_dx_norm 0) on the seed-0 venice871-class
+    # scene (871 cameras, 110,000 points, mean track 10: 1,107,724
+    # observations) with a float32 SC of float32 pair products and a
+    # float64 SC of float64 pair products; ba-schur: LM with the
+    # dense Schur engine on make_ba_scene(20, 500); city-schur-sparse:
+    # dogleg ("auto": the sparse Schur engine) on cityTrees10k; ba-marginals:
+    # the Schur marginals of make_ba_scene(20, 500)'s Hessian + 1e-2 I
+    "ba-venice": {"chi2_init": 16411352.833137445, "chi2_final": 1879060.347260055,
+                  "lm_accepted": 5, "n_obs": 1107724, "cpu_seconds": 40.21},
+    "ba-venice-f64": {"chi2_init": 16411352.833137445, "chi2_final": 1879036.4422342293,
+                      "lm_accepted": 5, "n_obs": 1107724, "cpu_seconds": 63.63},
+    "ba-schur": (4240.130092158383, 4),
+    "city-schur-sparse": (104151331.26338468, 5),
+    "ba-marginals": {
+        "trace_cc": 29.487038212680858, "trace_ll": 613.7855155315043,
+        "cam0": [[1.0642624986974345, -0.008332810600925486, 0.19469640433920857, 7.76305281174254e-05, -0.004263149018864655, 0.002070013252340921],
+                 [-0.008332810600925162, 0.162747950651233, -0.002208547210923629, 0.004541394059338843, -1.2444616303848816e-05, 0.0037398040194631423],
+                 [0.19469640433920854, -0.0022085472109236643, 0.20368657978930793, -0.001920281370029835, -0.003394419362282155, 1.931757371513359e-05],
+                 [7.763052811742608e-05, 0.004541394059338842, -0.001920281370029833, 0.024640573189452057, 0.00011897378328424087, 0.00016934371747312355],
+                 [-0.0042631490188646684, -1.2444616303845277e-05, -0.003394419362282156, 0.00011897378328424073, 0.023976409877114482, -0.00023004292223938568],
+                 [0.00207001325234091, 0.0037398040194631427, 1.9317573715133918e-05, 0.00016934371747312073, -0.0002300429222393865, 0.026013441460315184]],
+        "lm0": [[0.19180305723413046, 0.0022470673468091406, -0.005677517319831059],
+                 [0.002247067346808979, 0.19386623545774703, 0.004756912316509452],
+                 [-0.005677517319831015, 0.004756912316509411, 0.18296280562022726]]},
 }
 # the native phase: (run, engine, panel, as optimize_fused's CUDA graph)
 NATIVE_RUNS = (("v1-p8", "v1", 8, False), ("v2-p1", "v2", 1, False), ("v2-p1", "v2", 1, True),
@@ -240,17 +289,18 @@ TOL_FASTL_SE3 = {"n_relin": 0.05, "chi2_final": 1e-3}
 # chi2 tolerance), each holding the iterations applied to JAX's.  Dogleg
 # after the CLI's 5 iterations (chi2 2.8e6, every step on the trust
 # region's boundary) is held against JAX with its float32 Jacobians rounded
-# from float64, but its chi2 is printed, not bounded: a seeded per-entry
-# float32-sized change of those Jacobians moves the JAX package's own
-# result by 1.9e-3 to 1.09e-2 (6 seeds), and the card reads 2.1e-2, 5.0e-5
-# with the plain Cholesky at the separator (scripts/sphere_dogleg_ab.py;
-# the f32 kernel's accuracy there is an open fault, ROADMAP.md queue 3).
-# Run to its minimum |dx| (20 iterations at most; 10 applied) it is held
-# to 5e-3
+# from float64 at 5e-3: a seeded per-entry float32-sized change of those
+# Jacobians moves the JAX package's own result by 1.9e-3 to 1.09e-2 (6
+# seeds), and the card read 2.1e-2 while the f32 separator Cholesky
+# subtracted each product in turn (5.0e-5 with the plain Cholesky, 2.5e-3
+# with the repaired kernel: scripts/sphere_dogleg_ab.py, PERF.md).  Run to
+# its minimum |dx| (20 iterations at most; 10 applied) it is held to 5e-3
 SPHERE_SOLVER_PHASES = (("sphere-lm-v3", "lambda-lm", "v3", None, 5, TOL_3500),
-                        ("sphere-dl-v3-5", "lambda-dl", "v3", None, 5, None),
+                        ("sphere-dl-v3-5", "lambda-dl", "v3", None, 5, TOL_3500),
                         ("sphere-dl-v3", "lambda-dl", "v3", None, 20, TOL_3500),
                         ("robust", "lambda-lm", "v3", ("cauchy", True), 5, TOL_3500))
+# sphere2500 v3 GN in float64 against the JAX package's f64 optimum
+TOL_SPHERE_F64 = 1e-8
 SOLVER_PHASES = (("gn", "lambda", None), ("lm", "lambda-lm", None), ("lm-v3", "lambda-lm", "v3"),
                  ("dl", "lambda-dl", None), ("dl-v3", "lambda-dl", "v3"))
 TOL_SOLVER_F64 = 1e-6
@@ -379,18 +429,20 @@ def _check_kernels(dev):
     Returns {kernel: {...}}: the largest |kernel - plain| over the unfrozen
     cases, and the times and bound at the main path's own shape (the float32
     separator)."""
-    import numpy as np
     import torch
 
     from slampp_tpu_torch.ops import dense_kernels as dk
 
-    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
 
     def spd(K, M, zero_rows=()):
-        G = rng.normal(size=(K, M, M))
+        """K seeded SPD matrices (float64, on the card: a numpy product at M
+        = 6400 would take seconds), whole rows and columns zero at
+        ``zero_rows`` (exactly zero pivots in any precision)."""
+        G = torch.randn(K, M, M, device=dev, dtype=torch.float64, generator=gen)
         G[:, list(zero_rows), :] = 0.0
-        A = G @ np.swapaxes(G, 1, 2)
-        keep = np.setdiff1d(np.arange(M), zero_rows)
+        A = G @ G.transpose(1, 2)
+        keep = [i for i in range(M) if i not in zero_rows]
         A[:, keep, keep] += M
         return A
 
@@ -399,8 +451,9 @@ def _check_kernels(dev):
     res32, res64 = dk.chol_resident_max_m(f32), dk.chol_resident_max_m(f64)
     cases = [  # (kernel, K, M, S, frozen pivots, dtypes, timed dtypes).
         # Cholesky: the dense frames' part blocks (resident in shared
-        # memory), the separator (streamed), the exact mode's f64 shapes and
-        # the first M on each side of the resident / streaming boundary.
+        # memory), the separator (the large form), the exact mode's f64
+        # shapes and the first M on each side of the resident / streaming
+        # boundary (both stream at K = 2).
         # TRSMs: M = 1096 is beyond their resident slab size in both
         # precisions, and at M = 3104 the f64 solve pulls each x_p
         ("chol_batched", 55, 192, None, (), both, timed32),
@@ -455,16 +508,21 @@ def _check_kernels(dev):
         ("trsm_lower_t_batched", 1, 488, 8, (), (f64,), timed64),
         # the sphere phases' shapes (6 x 6 blocks, dense frames): sphere2500
         # (K = 40, M = 320, S = 174, its rhs column padded to 176; separator
-        # Ms = 3952) in float32, and in float64 where chol_kernel takes the
-        # separator; sphere1000 in float64 (K = 17, S = 150 + 1 -> 152,
-        # separator Ms = 1472)
+        # Ms = 3952; the part frames stream, the separator takes the large
+        # form) in float32 and float64; sphere1000 in float64 (K = 17, S =
+        # 150 + 1 -> 152, separator Ms = 1472); an f64 M beyond 3952 (the
+        # one-CTA kernel stopped at 3104) and the large form with frozen
+        # pivots
         ("chol_batched", 40, 320, None, (), both, both),
-        ("chol_batched", 1, 3952, None, (), (f32,), timed32),
+        ("chol_batched", 3, 320, None, (5, 200, 319), both, ()),
+        ("chol_batched", 1, 3952, None, (), both, both),
+        ("chol_batched", 1, 3952, None, (7, 2000, 3951), both, ()),
+        ("chol_batched", 1, 6400, None, (), (f64,), timed64),
         ("trsm_lower_batched", 40, 320, 176, (), both, both),
         ("trsm_lower_batched", 40, 320, 8, (), both, both),
-        ("trsm_lower_batched", 1, 3952, 8, (), (f32,), timed32),
+        ("trsm_lower_batched", 1, 3952, 8, (), both, both),
         ("trsm_lower_t_batched", 40, 320, 8, (), both, both),
-        ("trsm_lower_t_batched", 1, 3952, 8, (), (f32,), timed32),
+        ("trsm_lower_t_batched", 1, 3952, 8, (), both, both),
         ("chol_batched", 17, 320, None, (), (f64,), timed64),
         ("chol_batched", 1, 1472, None, (), (f64,), timed64),
         ("trsm_lower_batched", 17, 320, 152, (), (f64,), timed64),
@@ -472,22 +530,35 @@ def _check_kernels(dev):
         ("trsm_lower_batched", 1, 1472, 8, (), (f64,), timed64),
         ("trsm_lower_t_batched", 17, 320, 8, (), (f64,), timed64),
         ("trsm_lower_t_batched", 1, 1472, 8, (), (f64,), timed64),
+        # cityTrees10k's reduced pose system through the sparse Schur engine
+        # (SE(2) 3 x 3 blocks, mixed): part frames K = 157, M = 192, S = 402
+        # (+ 1 -> 408); separator Ms = 3952 (above)
+        ("chol_batched", 157, 192, None, (), (f32,), timed32),
+        ("trsm_lower_batched", 157, 192, 408, (), (f32,), timed32),
+        ("trsm_lower_batched", 157, 192, 8, (), (f32,), timed32),
+        ("trsm_lower_t_batched", 157, 192, 8, (), (f32,), timed32),
     ]
     main_shape = (1, 488, f32)
     plain = {"chol_batched": dk.chol_batched_plain,
              "trsm_lower_batched": dk.trsm_lower_batched_plain,
              "trsm_lower_t_batched": dk.trsm_lower_t_batched_plain}
-    summary = {k: {"max_abs_err": 0.0} for k in plain}
+    summary = {k: {"max_abs_err": 0.0, "shapes": []} for k in plain}
     for name, K, M, S, zero_rows, dtypes, timed in cases:
         A64 = spd(K, M, zero_rows)
-        B64 = rng.normal(size=(K, M, S)) if S else None
+        B64 = (torch.randn(K, M, S, device=dev, dtype=torch.float64, generator=gen)
+               if S else None)
         for dtype in dtypes:
             t0 = time.perf_counter()
-            A = torch.from_numpy(A64).to(dev, dtype)
+            A = A64.to(dtype)
             if name == "chol_batched":
                 args = (A,)
             else:
-                args = (dk.chol_batched_plain(A), torch.from_numpy(B64).to(dev, dtype))
+                # the TRSMs' input, not under test: the plain factor where
+                # pivots freeze, else the library's (the plain Cholesky at
+                # M = 3952 takes seconds)
+                L = (dk.chol_batched_plain(A) if zero_rows
+                     else torch.linalg.cholesky(A64).to(dtype).contiguous())
+                args = (L, B64.to(dtype))
             kern = getattr(dk, name)
             out = kern(*args)
             ref = plain[name](*args)
@@ -511,7 +582,7 @@ def _check_kernels(dev):
             info = {"kernel": name, "shape": [K, M, S] if S else [K, M, M], "dtype": dt,
                     "frozen": list(zero_rows), "max_abs_err": err, "rel_err": rel, "tol": tol}
             if name == "chol_batched":
-                info["resident"] = M <= (res32 if dtype == f32 else res64)
+                info["form"] = dk.chol_form(dtype, K, M)
             if dtype in timed:
                 # 20 calls each, fewer where a call is long (the sphere
                 # separator, the plain Cholesky's ~150 launches per 8 columns)
@@ -537,6 +608,10 @@ def _check_kernels(dev):
                     info["library_device_ms"] = info["plain_device_ms"]
                     info["library_device_ms_source"] = info["plain_device_ms_source"]
                 info["bound_ms"], info["bound_by"] = _bound(name, K, M, S, dt)
+                summary[name]["shapes"].append({k: info[k] for k in (
+                    "shape", "dtype", "form", "ms", "device_ms", "device_ms_source", "plain_ms",
+                    "plain_device_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                    "max_abs_err", "rel_err") if k in info})
                 if (K, M, dtype) == main_shape:
                     summary[name].update({k: info[k] for k in (
                         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
@@ -704,16 +779,18 @@ def _sphere_phases(dev) -> dict:
     per_iter["sphere"] = {k: v / (res["n_iters"] * (1 + res["n_rep"]))
                           for k, v in launches.items()}
 
-    # exact f64 at sphere2500: the separator exceeds chol_kernel's f64 limit
-    t0 = time.perf_counter()
-    try:
-        sphere.run(2500, dev, mixed_precision=False, n_rep=0)
-        err = None
-    except RuntimeError as exc:
-        err = str(exc)
-    _line("sphere-f64-limit", err is not None and err.startswith("chol_batched:"),
-          time.perf_counter() - t0, error=err,
-          max_m_f64=3104, separator_m=ref["plan"]["Ms"])
+    # exact f64 at sphere2500: the (1, 3952, 3952) f64 separator takes the
+    # large form (the one-CTA kernel stopped at M = 3104)
+    dk.reset_launches()
+    res = _run_path("sphere-f64", sphere.run, dev, 2500, JAX_REF["sphere-f64"], TOL_SPHERE_F64,
+                    mixed_precision=False, n_rep=1)
+    launches = dict(dk.launches)
+    _line("sphere-f64-launches", all(v > 0 for v in launches.values())
+          and {s[4] for s in dk.launch_shapes} == {"float64"}
+          and ("chol_batched", 1, 3952, None, "float64") in dk.launch_shapes, 0.0,
+          plan=res["plan"], launches=launches)
+    per_iter["sphere-f64"] = {k: v / (res["n_iters"] * (1 + res["n_rep"]))
+                              for k, v in launches.items()}
 
     ref = JAX_REF["sphere-exact"]
     dk.reset_launches()
@@ -734,7 +811,7 @@ def _sphere_phases(dev) -> dict:
         launches = dict(dk.launches)
         states = res.pop("states")
         rel = abs(res["chi2_final"] - expected) / expected
-        ok = ((tol is None or rel <= tol) and res["applied"] == applied_ref
+        ok = (rel <= tol and res["applied"] == applied_ref
               and _states_ok(states, 2500) and all(v > 0 for v in launches.values()))
         if robust is not None:
             ok = ok and res["robust"]["share_below_1"] > 0
@@ -783,6 +860,73 @@ def _sphere_phases(dev) -> dict:
           time.perf_counter() - t0, expected=expected, applied_ref=applied_ref, rel_err=rel,
           tol=TOL_SOLVER_F64, **res)
     return per_iter
+
+
+# the BA phases: venice with the float32 SC of float32 pair products (the
+# bench's setting) within 5e-3 of the JAX package's CPU run, with the
+# float64 SC of float64 pair products within 1e-6.  (The JAX package's
+# float64 SC of float32 pair products is no reference: its LM run follows
+# their rounding, rejecting a step at iteration 3 (chi2 9.87e6) that the
+# port, rounding otherwise, accepts: 4 against 5 accepted, 3.9e-4 apart;
+# with float64 pair products both accept 5 and agree to 3.9e-11, PERF.md.)
+# The dense Schur LM (float64) within 1e-6; cityTrees10k's dogleg through
+# the sparse Schur engine (mixed v3) within 5e-3; the marginals within 1e-6
+TOL_BA = {"ba-venice": 5e-3, "ba-venice-f64": 1e-6, "ba-schur": 1e-6,
+          "city-schur-sparse": 5e-3, "ba-marginals": 1e-6}
+
+
+def _ba_phases(dev) -> dict:
+    """The BA phases (apps/ba) against JAX_REF, each one's launches counted
+    from zero; returns the sparse Schur dogleg's launches per iteration."""
+    import numpy as np
+    import torch
+
+    from slampp_tpu_torch.apps import ba
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    for phase, sc_f64 in (("ba-venice", False), ("ba-venice-f64", True)):
+        ref, tol = JAX_REF[phase], TOL_BA[phase]
+        t0 = time.perf_counter()
+        dk.reset_launches()
+        res = ba.run_venice(871, 110_000, 10, dev, sc_f64=sc_f64, pair_f32=not sc_f64)
+        rel = abs(res["chi2_final"] - ref["chi2_final"]) / ref["chi2_final"]
+        ok = (rel <= tol and res["lm_accepted"] == ref["lm_accepted"]
+              and res["n_obs"] == ref["n_obs"] and not any(dk.launches.values())
+              and abs(res["chi2_init"] - ref["chi2_init"]) <= 1e-9 * ref["chi2_init"])
+        _line(phase, ok, time.perf_counter() - t0, reference=ref, rel_err=rel, tol=tol, **res)
+
+    expected, applied_ref = JAX_REF["ba-schur"]
+    t0 = time.perf_counter()
+    res = ba.run_ba_scene(20, 500, dev)
+    states = res.pop("states")
+    rel = abs(res["chi2_final"] - expected) / expected
+    _line("ba-schur", rel <= TOL_BA["ba-schur"] and res["applied"] == applied_ref
+          and all(bool(torch.isfinite(s).all()) for s in states.values()),
+          time.perf_counter() - t0, expected=expected, applied_ref=applied_ref, rel_err=rel,
+          tol=TOL_BA["ba-schur"], **res)
+
+    expected, applied_ref = JAX_REF["city-schur-sparse"]
+    t0 = time.perf_counter()
+    res = ba.run_city_schur(10000, 100, dev)
+    states = res.pop("states")
+    rel = abs(res["chi2_final"] - expected) / expected
+    ok = (rel <= TOL_BA["city-schur-sparse"] and res["applied"] == applied_ref
+          and res["engine"] == "schur_sparse" and all(v > 0 for v in res["launches"].values())
+          and all(bool(torch.isfinite(s).all()) for s in states.values()))
+    _line("city-schur-sparse", ok, time.perf_counter() - t0, expected=expected,
+          applied_ref=applied_ref, rel_err=rel, tol=TOL_BA["city-schur-sparse"], **res)
+    per_iter = {k: v / res["iterations"] for k, v in res["launches"].items()}
+
+    ref = JAX_REF["ba-marginals"]
+    t0 = time.perf_counter()
+    res = ba.run_ba_marginals(20, 500, dev)
+    rel = {k: abs(res[k] - ref[k]) / abs(ref[k]) for k in ("trace_cc", "trace_ll")}
+    for k in ("cam0", "lm0"):
+        got, want = np.asarray(res[k]), np.asarray(ref[k])
+        rel[k] = float(np.abs(got - want).max() / np.abs(want).max())
+    _line("ba-marginals", res["finite"] and all(v <= TOL_BA["ba-marginals"] for v in rel.values()),
+          time.perf_counter() - t0, rel_err=rel, tol=TOL_BA["ba-marginals"], **res)
+    return {"city-schur-sparse": per_iter}
 
 
 def _incremental_phase(phase, engine, kw, counters, dev):
@@ -894,6 +1038,9 @@ def main() -> int:
 
     # the SE(3) sphere graph and the robust losses
     per_iter.update(_sphere_phases(dev))
+
+    # bundle adjustment: venice871 class, the Schur engines, cityTrees10k
+    per_iter.update(_ba_phases(dev))
 
     # 13-15. the incremental solvers, in a child process of their own
     per_iter.update(_incremental_child())

@@ -121,10 +121,11 @@ def run(n_poses: int, device, n_iters: int = 5, target: int = 64, refine: int = 
     }
 
 
-def _profiled(fn, device: torch.device, top: int) -> dict:
+def _profiled(fn, device: torch.device, top: int, prefixes=("v3.",)) -> dict:
     """torch.profiler over one call of ``fn``: its wall time, the device's
-    busy time and idle share, the device span of each ``v3.*`` range and the
-    ``top`` kernels by device time."""
+    busy time and idle share, the device span of each range whose name
+    starts with one of ``prefixes`` and the ``top`` kernels by device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -140,9 +141,9 @@ def _profiled(fn, device: torch.device, top: int) -> dict:
     events = prof.key_averages()
     # a layer range's device time is its span on the device timeline
     layers = {e.key: {"device_span_us": e.device_time_total, "count": e.count}
-              for e in events if e.key.startswith("v3.")}
+              for e in events if e.key.startswith(prefixes)}
     kernels = sorted(  # device-side events only (an aten op also carries its kernels' time)
-        (e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith("v3.")),
+        (e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith(prefixes)),
         key=lambda e: -e.self_device_time_total,
     )
     busy_us = sum(e.self_device_time_total for e in kernels)

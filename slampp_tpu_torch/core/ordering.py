@@ -227,3 +227,23 @@ def nested_dissection_ordering(adj: sp.csr_matrix, leaf_size: int = 32,
     order.extend(sorted(last))
     assert len(order) == n, (len(order), n)
     return np.asarray(order, dtype=np.int64)
+
+
+def mis_first_fit(adj: sp.csr_matrix, order: Optional[np.ndarray] = None) -> np.ndarray:
+    """Greedy maximal independent set, first fit (CSchurOrdering::
+    t_MIS_FirstFit, include/slam/LinearSolver_Schur.h:332): visit the
+    vertices in ``order`` (default ascending degree) and take one when no
+    neighbour is taken yet.  Sorted member indices; the Schur elimination
+    set of a graph with no landmark-like type (linear/schur.py)."""
+    n = adj.shape[0]
+    indptr, indices = adj.indptr, adj.indices
+    if order is None:
+        order = np.argsort(np.diff(indptr), kind="stable")
+    in_set = np.zeros(n, bool)
+    blocked = np.zeros(n, bool)
+    for v in order:
+        if blocked[v] or in_set[v]:
+            continue
+        in_set[v] = True
+        blocked[indices[indptr[v]:indptr[v + 1]]] = True
+    return np.flatnonzero(in_set)

@@ -13,56 +13,86 @@
 // (a Mosaic workaround for dynamic lane slices); here the kernels walk
 // panels of kNB = 32 rows with plain indexing.
 //
-// Cholesky: one CTA per matrix, register-tiled.  A call is one launch of K
-// CTAs of 512 threads, no cluster.  At the path's shapes the bound is tiny
-// ((1, 488, 488) f32: 38.7 MFLOP, 0.58 us at 67 TFLOP/s; (55, 192, 192):
-// 12.2 MB, 3.6 us at 3.35 TB/s); what holds one CTA back is the serial chain
-// of 32-wide panels and the rate at which one SM feeds its FMAs from shared
-// memory.  The first design took 1.48 ms at (1, 488, 488) on an H100: 60%
-// in a trailing update that issued two shared loads per FMA and a read-
-// modify-write of every element through L2, 23% in one warp's shared
-// read-modify-write loops for each diagonal block, 11% in a one-thread-per-
-// row panel solve with strided global reads, 6% in an element-by-element
-// copy of A (%globaltimer phase timestamps, PERF.md).  This design, per
-// panel p:
+// Cholesky: three forms, chosen on the host per (device, K, M, dtype) and
+// kept (plan_chol).  The two one-CTA forms run a matrix per CTA of 512
+// threads; the large form spreads each matrix over every SM.
+//
+// One CTA per matrix, register-tiled.  At the part frames' shapes the bound
+// is tiny ((55, 192, 192): 12.2 MB, 3.6 us at 3.35 TB/s); what holds one CTA
+// back is the serial chain of 32-wide panels and the rate at which one SM
+// feeds its FMAs from shared memory.  The first design took 1.48 ms at
+// (1, 488, 488) on an H100: 60% in a trailing update that issued two shared
+// loads per FMA and a read-modify-write of every element through L2, 23% in
+// one warp's shared read-modify-write loops for each diagonal block, 11% in
+// a one-thread-per-row panel solve with strided global reads, 6% in an
+// element-by-element copy of A (%globaltimer phase timestamps, PERF.md).
+// This design, per panel p:
 //
 //  * Diagonal block: warp 0 holds its rows in registers and factors it one
-//    column per step, the column broadcast by shuffles; the next pivot's
-//    reciprocal square root (MUFU.RSQ in f32) is taken as soon as its entry
-//    is updated, so it overlaps the rest of the step.  Warps 0-7 then invert
-//    it (invert_diag, shared with the TRSMs).  Pivot freezing as
-//    _chol_value (dense_kernels.py:69-112): the test is on the fully updated
-//    diagonal entry d; d <= clamp (or NaN) gives d = 1e20, and the column's
-//    multipliers are scaled by 1 / L_jj, so a failed pivot freezes its
-//    column at about 0 (L_jj = 1e10) instead of amplifying it.
+//    column per step, the column broadcast by shuffles; the next pivot is
+//    taken as soon as its entry is updated, so it overlaps the rest of the
+//    step.  The pivot is the correctly rounded sqrt and its correctly
+//    rounded reciprocal, as in the plain version (pivot()).  Warps 0-7 then
+//    invert the block (invert_diag, shared with the TRSMs).  Pivot freezing
+//    as _chol_value (dense_kernels.py:69-112): the test is on the fully
+//    updated diagonal entry d; d <= clamp (or NaN) gives d = 1e20, and the
+//    column's multipliers are scaled by 1 / L_jj, so a failed pivot freezes
+//    its column at about 0 (L_jj = 1e10) instead of amplifying it.
 //  * Panel: W = A_p L_d^-T, one row per thread in registers, the rows of
 //    L_d^-1 read as broadcast 16-byte vectors; W also goes, transposed, to
 //    shared memory for the update.
 //  * Trailing update: each warp takes 32 x 32 tiles of the lower trailing
 //    triangle in turn, each lane a 4 x 8 register tile, 32 FMAs per three
-//    16-byte shared loads of W^T; the tile is read and written once per
-//    panel.  A round (one tile per warp) takes about 2.5x the issue time of
-//    its FMAs: the depth loop issues loads and address arithmetic beside
-//    them, and every warp loads and stores its tile at the same time.  More
-//    FMAs per load (an 8 x 8 register tile in f32) and loading the next
-//    tile during the current one both ran into the 128-register cap of 512
-//    threads (spills) and were slower.
+//    16-byte shared loads of W^T; the products of an entry are summed from
+//    zero and subtracted once (chol_trailing).  More FMAs per load (an 8 x 8
+//    register tile in f32) and loading the next tile during the current one
+//    both ran into the 128-register cap of 512 threads (spills) and were
+//    slower.
 //  * Resident form, where the packed lower triangle fits the 227 KB opt-in
 //    beside the rest (f32 M <= 288, f64 M <= 192 on an H100: the dense
 //    frames' part blocks in both dtypes): it is loaded once by one
 //    cp.async.bulk per row on an mbarrier, factored in shared memory and
-//    written back once with the upper triangle zeroed.  Otherwise
-//    (streaming: the separator) the factor is formed in the output
-//    (L2-resident): the first panel reads A, the part right of each
-//    diagonal block is zeroed once, and each panel's rows are staged in
-//    shared memory by coalesced 16-byte copies.  The form is a template
-//    parameter, chosen on the host per (device, M, dtype) and kept.
-//  * M up to 6336 (f32) / 3104 (f64), as before: from M = 1736 (f32) / 840
-//    (f64) the update takes W^T 16 columns at a time, from 3432 / 1640 8
-//    columns; above the limit the launch returns cudaErrorInvalidValue.
-//  * No tensor cores (TF32 would miss the f32 tolerance; f64 DMMA is queued
-//    work) and no cluster: the separator runs on one SM.
+//    written back once with the upper triangle zeroed.  Streaming form
+//    (below chol_large_from(K): sphere's (40, 320) part frames): the factor
+//    is formed in the output (L2-resident): the first panel reads A, the
+//    part right of each diagonal block is zeroed once, and each panel's rows
+//    are staged in shared memory by coalesced 16-byte copies.
 //
+// Large form (chol_big_kernel: the separators, (1, 488) to (1, 3952) and
+// beyond): one cooperative launch of as many 256-thread CTAs as the card
+// holds at once (2 per SM), the factor formed in place in the output, the
+// three steps of each 32-wide panel separated by grid-wide barriers.  The
+// one-CTA design took 404 ms at (1, 3952, 3952) f32 (M^3 / 3 = 2.06e10
+// FLOP on one SM, 1300x the 0.31 ms bound) and could not take f64 beyond
+// M = 3104 (its W^T and staged rows no longer fit one SM's shared memory).
+// Per panel:
+//  * every CTA with panel rows loads the factored 32 x 32 diagonal block
+//    and solves its rows by substitution, one row per thread (W[c] =
+//    (a[c] - sum_{t < c} W[t] L[c][t]) / L[c][c], as the plain version);
+//  * the trailing update of the lower triangle in 64 x 64 tiles spread over
+//    the grid, each thread a 4 x 4 register tile fed by two 16-byte shared
+//    loads of W^T per depth step, the 32 products summed from zero and
+//    subtracted once;
+//  * the CTA of tile (0, 0), which holds the next diagonal block, factors it
+//    (warp 0, as above) right after its own update, so the next panel's
+//    rows find it factored after the barrier: two grid barriers per panel.
+// Any M that memory holds, in both dtypes; K matrices share the grid as
+// (matrix, rows) and (matrix, tile) items.  What bounds it is the panel
+// chain: about 25-40 us per panel on an H100 (two barriers, the diagonal
+// block's serial factorization, a substitution of 32 dependent steps), so
+// 5.0 ms at (1, 3952, 3952) f32 against cholesky_ex's 1.74 (PERF.md).
+//
+// Accuracy: subtracting each of a panel's products from an entry in turn
+// (the one-CTA design before) rounds at the entry's magnitude once per
+// column; at the sphere2500 separator (condition ~6.6e5) that made the f32
+// factor's residual 4x the plain version's and a solve through it 8x less
+// accurate.  Summing the products first, as the plain version's A -= W W^T
+// does, and taking exact pivots gives a residual below the plain version's
+// (PERF.md).
+//
+// No tensor cores (TF32 would miss the f32 tolerance; f64 DMMA is queued
+// work).
+
 // Triangular solves: a cluster-resident wavefront.  The first design (one
 // CTA per matrix and 8-column group of B, 32-row panels in order) was bound
 // by latency, not by FLOPs or bytes: at the separator shape (1, 488, 8) it
@@ -130,8 +160,8 @@
 //    forms it, then every other CTA copies it into a staging tile through
 //    distributed shared memory.  Shared memory then grows with the panels
 //    per CTA only, and the solve takes M up to 7680 (f64) / 12288 (f32) on a
-//    227 KB opt-in, above the 3104 / 6336 that chol_kernel factors; beyond
-//    that no plan fits and the launch returns cudaErrorInvalidValue.
+//    227 KB opt-in; beyond that no plan fits and the launch returns
+//    cudaErrorInvalidValue.
 //  * No tensor cores: the products are 32 x 32 by 32 x 8 and latency-bound,
 //    and TF32 would miss the f32 residual tolerance.
 //
@@ -572,14 +602,8 @@ __global__ void __launch_bounds__(kTrsmThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Cholesky: one CTA per matrix, register-tiled trailing update
+// Cholesky, one CTA per matrix: resident and streaming forms
 // ---------------------------------------------------------------------------
-
-// The largest M the Cholesky takes: what the first kernel's shared-memory
-// panel buffer allowed on a 227 KB opt-in.  The plan below would fit more,
-// but the callers' contract (and the tests at the limit) keep this one.
-template <typename T>
-constexpr int kCholMaxM = sizeof(T) == 4 ? 6336 : 3104;
 
 // Row stride of 32-wide blocks whose rows are read as 16-byte vectors by
 // one thread per row: 32 + 16 bytes, so that a warp's vector loads of 32
@@ -629,7 +653,8 @@ size_t chol_smem(int M, bool resident, int kc, int rs) {
 }
 
 // Row i of the factor being formed: the packed triangle in shared memory
-// (resident) or the output in global memory (streaming).
+// (resident) or a row-major (M, M) matrix in global memory (streaming, and
+// the large form).
 template <typename T, bool kRes>
 __device__ __forceinline__ T* chol_row(T* base, int M, int i) {
   return kRes ? base + packed_row<T>(i) : base + static_cast<size_t>(i) * M;
@@ -660,26 +685,28 @@ __device__ __forceinline__ void store_vec(T* p, const T* v) {
   for (int u = 0; u < n / kV; ++u) reinterpret_cast<V*>(p)[u] = pack(v + u * kV);
 }
 
-// 1 / sqrt(d) without a branch to a slow path (MUFU.RSQ in f32, 2 ulp; the
-// library's rsqrt in f64, 1 ulp): the pivot chain stays one basic block
-__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
-
 // The pivot of a column: d <= clamp (or NaN) is frozen at 1e20, as
-// _chol_value (dense_kernels.py:69-112) does.  Returns L_jj; *inv = 1 / L_jj.
+// _chol_value (dense_kernels.py:69-112) does.  Returns L_jj = sqrt(d),
+// correctly rounded; *inv = 1 / L_jj, correctly rounded, so that the
+// column's multipliers are d_i * (1 / L_jj) as in the plain version.  (The
+// kernels before took L_jj = d * rsqrt(d) with MUFU.RSQ's 2-ulp rsqrt and
+// scaled by that rsqrt; a CPU rehearsal on a sphere2500 separator puts a
+// pivot 1-2 ulp off at 3x the solve error of an exact one, PERF.md.)
 template <typename T>
 __device__ __forceinline__ T pivot(T d, T clamp, T* inv) {
   d = (d > clamp) ? d : T(1e20);
-  *inv = rsqrt_t(d);
-  return d * *inv;
+  const T ljj = sqrt_t(d);
+  *inv = T(1) / ljj;
+  return ljj;
 }
 
 // Factors the w x w diagonal block at rows/columns [j0, j0 + w) of src into
-// dst (warp 0; lane r holds row r in registers, rows beyond w are identity)
-// and into dcopy ([kNB][kLdd]) when given.  Right-looking, one column per
-// step, its multipliers scaled by 1 / L_jj; the column is broadcast by
-// shuffles.  The next column's pivot is taken as soon as its diagonal entry
-// is updated, so that its square root overlaps the rest of the step.
+// dst (warp 0; lane r holds row r in registers, rows beyond w are identity;
+// zeros right of the diagonal) and into dcopy ([kNB][kLdd]) when given.
+// Right-looking, one column per step, its multipliers scaled by 1 / L_jj;
+// the column is broadcast by shuffles.  The next column's pivot is taken as
+// soon as its diagonal entry is updated, so that its square root overlaps
+// the rest of the step.  src may be dst.
 template <typename T, bool kRes>
 __device__ __forceinline__ void chol_diag(const T* src, T* dst, T* dcopy, int M, int j0, int w,
                                           T clamp) {
@@ -802,10 +829,15 @@ __device__ __forceinline__ void chol_panel(const T* src, T* dst, T* S, int rs, c
 // Trailing update of the lower triangle right of panel p, depth `depth`
 // (the kc columns of W^T in wt): each warp takes the 32 x 32 tiles (I, J),
 // p < J <= I, in turn; lane (ry, cx) keeps rows 4ry .. 4ry + 3 and columns
-// 8cx .. 8cx + 7 of the tile in registers, reads the tile once, and at each
-// depth step loads its 4 + 8 entries of W^T as 16-byte vectors for 32 FMAs.
-// The depth loop is unrolled by 2 only: a deeper unroll hoists the W^T
-// loads of many steps into registers and spills.
+// 8cx .. 8cx + 7 of the tile in registers and at each depth step loads its
+// 4 + 8 entries of W^T as 16-byte vectors for 32 FMAs.  The depth's
+// products of an entry are summed from zero and subtracted from it once,
+// as the plain version's A -= W W^T does: subtracting each product from the
+// entry in turn rounds at the entry's magnitude once per column, which
+// made the f32 factor 4-5x less accurate than the plain version at the
+// sphere2500 separator (PERF.md).  The depth loop is unrolled by 2 only: a
+// deeper unroll hoists the W^T loads of many steps into registers and
+// spills.
 template <typename T, bool kRes>
 __device__ __forceinline__ void chol_trailing(const T* src, T* dst, const T* wt, int ldw, int depth,
                                               int M, int P, int p) {
@@ -820,14 +852,9 @@ __device__ __forceinline__ void chol_trailing(const T* src, T* dst, const T* wt,
     const int c0 = J * kNB + 8 * cx;
     T acc[4][8];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      if (r0 + a < M && c0 < M) {
-        load_vec<T, 8>(chol_row<T, kRes>(const_cast<T*>(src), M, r0 + a) + c0, acc[a]);
-      } else {
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = T(0);
-      }
-    }
+      for (int b = 0; b < 8; ++b) acc[a][b] = T(0);
     const T* wr = wt + r0 - j1;
     const T* wc = wt + c0 - j1;
 #pragma unroll 2
@@ -838,18 +865,22 @@ __device__ __forceinline__ void chol_trailing(const T* src, T* dst, const T* wt,
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] -= x[a] * y[b];
+        for (int b = 0; b < 8; ++b) acc[a][b] += x[a] * y[b];
     }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       if (r0 + a >= M || c0 >= M) continue;
+      T v[8];
+      load_vec<T, 8>(chol_row<T, kRes>(const_cast<T*>(src), M, r0 + a) + c0, v);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) v[b] -= acc[a][b];
       T* row = chol_row<T, kRes>(dst, M, r0 + a) + c0;
       if (I != J || c0 + 7 <= r0 + a) {
-        store_vec<T, 8>(row, acc[a]);
+        store_vec<T, 8>(row, v);
       } else {
 #pragma unroll
         for (int b = 0; b < 8; ++b)
-          if (c0 + b <= r0 + a) row[b] = acc[a][b];
+          if (c0 + b <= r0 + a) row[b] = v[b];
       }
     }
     J += kCholThreads / 32;
@@ -970,6 +1001,213 @@ __global__ void __launch_bounds__(kCholThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Cholesky, large form: the whole card, one cooperative launch
+// ---------------------------------------------------------------------------
+
+constexpr int kBigThreads = 256;
+constexpr int kTile = 64;  // trailing-update tiles: 64 x 64, 4 x 4 per thread
+
+// Row stride of a transposed 64-row block of W in shared memory: rows stay
+// 16-byte aligned for the vector loads of the update.
+template <typename T>
+constexpr int kLdt = kTile + static_cast<int>(16 / sizeof(T));
+
+// One row of the panel in place: W = a L_d^-T by substitution, column by
+// column, each W[c] = (a[c] - sum_{t < c} W[t] L_d[c][t]) / L_d[c][c] as
+// the plain version's _trsm_right_T_value (dense_kernels.py) forms it, with
+// the rows of L_d ([kNB][kLdv] in shared memory) read as broadcast 16-byte
+// vectors.
+template <typename T>
+__device__ __forceinline__ void panel_solve_row(T* a, const T* sD) {
+  constexpr int kV = 16 / sizeof(T);
+  T x[kNB];
+  load_vec<T, kNB>(a, x);
+#pragma unroll
+  for (int c = 0; c < kNB; ++c) {
+    T y = x[c];
+#pragma unroll
+    for (int t0 = 0; t0 <= c; t0 += kV) {
+      T q[kV];
+      load_vec<T, kV>(sD + c * kLdv<T> + t0, q);
+#pragma unroll
+      for (int e = 0; e < kV; ++e)
+        if (t0 + e < c) y -= x[t0 + e] * q[e];
+      if (t0 + kV > c) x[c] = y / q[c - t0];
+    }
+  }
+  store_vec<T, kNB>(a, x);
+}
+
+// 64 rows of W (columns [j0, j0 + 32) of rows [r0, r0 + 64) of l; zeros
+// from row M on), transposed into w ([kNB][kLdt]).
+template <typename T>
+__device__ __forceinline__ void load_wt(const T* l, int M, int j0, int r0, T* w) {
+  constexpr int kV = 16 / sizeof(T);
+  constexpr int kPerRow = kNB / kV;
+  for (int idx = threadIdx.x; idx < kTile * kPerRow; idx += kBigThreads) {
+    const int r = idx / kPerRow, q = idx - r * kPerRow;
+    T v[kV];
+    if (r0 + r < M) {
+      load_vec<T, kV>(l + static_cast<size_t>(r0 + r) * M + j0 + q * kV, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kV; ++e) v[e] = T(0);
+    }
+#pragma unroll
+    for (int e = 0; e < kV; ++e) w[(q * kV + e) * kLdt<T> + r] = v[e];
+  }
+}
+
+// The tile of rows [r0, r0 + 64) and columns [c0, c0 + 64) of l minus W_r
+// W_c^T, the 32 columns of the panel at j0 (diag: r0 == c0, the lower
+// triangle only).  Thread (ty, tx) of a 16 x 16 grid keeps rows r0 + 4ty ..
+// + 3 and columns c0 + 4tx .. + 3 in registers: per depth step two 16-byte
+// (f32) shared loads of W^T for 16 FMAs.  The 32 products of an entry are
+// summed from zero and subtracted once.
+template <typename T>
+__device__ __forceinline__ void trailing_tile(T* l, int M, int j0, int r0, int c0, T* sWr,
+                                              T* sWc) {
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const bool diag = r0 == c0;
+  __syncthreads();  // the tile before has read sWr / sWc
+  load_wt<T>(l, M, j0, r0, sWr);
+  if (!diag) load_wt<T>(l, M, j0, c0, sWc);
+  __syncthreads();
+  const T* wc = diag ? sWr : sWc;
+  T s[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) s[a][b] = T(0);
+#pragma unroll 8
+  for (int t = 0; t < kNB; ++t) {
+    T x[4], y[4];
+    load_vec<T, 4>(sWr + t * kLdt<T> + 4 * ty, x);
+    load_vec<T, 4>(wc + t * kLdt<T> + 4 * tx, y);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) s[a][b] += x[a] * y[b];
+  }
+  const int c = c0 + 4 * tx;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + 4 * ty + a;
+    if (r >= M || c >= M || (diag && c > r)) continue;
+    T* p = l + static_cast<size_t>(r) * M + c;
+    T v[4];
+    load_vec<T, 4>(p, v);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) v[b] -= s[a][b];
+    if (!diag || c + 3 <= r) {
+      store_vec<T, 4>(p, v);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (c + b <= r) p[b] = v[b];
+    }
+  }
+}
+
+// Right-looking blocked Cholesky of K (M, M) matrices on every SM: the
+// factor is formed in place in L (global memory, L2-resident as far as it
+// fits), in 32-wide panels; see the note at the top of the file.  Work is
+// spread over the grid as items, (matrix, 256 panel rows) and (matrix,
+// trailing tile), and the phases are separated by grid-wide barriers of the
+// cooperative launch:
+//   0. L = the lower triangle of A, zeros above; each matrix's first
+//      diagonal block is factored from A by warp 0 of one CTA;
+//   per panel p with rows below it:
+//   1. each CTA with panel rows loads the factored diagonal block L_d and
+//      solves its rows (one per thread) in place;            -- grid sync
+//   2. the trailing update of the lower triangle right of the panel in
+//      64 x 64 tiles; the CTA of tile (0, 0), which holds the next diagonal
+//      block, factors that block right after its update, so phase 1 of the
+//      next panel finds it ready.                            -- grid sync
+template <typename T>
+__global__ void __launch_bounds__(kBigThreads, 2)
+    chol_big_kernel(const T* A, T* L, int K, int M, T clamp) {
+  __shared__ __align__(16) T sD[kNB * kLdv<T>];
+  __shared__ __align__(16) T sWr[kNB * kLdt<T>];
+  __shared__ __align__(16) T sWc[kNB * kLdt<T>];
+  cg::grid_group grid = cg::this_grid();
+  constexpr int kV = 16 / sizeof(T);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int b = blockIdx.x, nb = gridDim.x;
+  const size_t MM = static_cast<size_t>(M) * M;
+  const int P = (M + kNB - 1) / kNB;
+
+  // 0. the lower triangle of A into L (16-byte vectors; M is a multiple of
+  //    8, so a vector never crosses a row), but the first diagonal blocks
+  const size_t nvec = static_cast<size_t>(K) * MM / kV;
+  for (size_t v = static_cast<size_t>(b) * kBigThreads + tid; v < nvec;
+       v += static_cast<size_t>(nb) * kBigThreads) {
+    const size_t off = (v * kV) % MM;
+    const int i = static_cast<int>(off / M), c = static_cast<int>(off % M);
+    if (i < kNB && c < kNB) continue;
+    T x[kV];
+    if (c <= i) {
+      load_vec<T, kV>(A + v * kV, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kV; ++e) x[e] = T(0);
+    }
+#pragma unroll
+    for (int e = 0; e < kV; ++e)
+      if (c + e > i) x[e] = T(0);
+    store_vec<T, kV>(L + v * kV, x);
+  }
+  if (warp == 0)
+    for (int k = b; k < K; k += nb)
+      chol_diag<T, false>(A + k * MM, L + k * MM, nullptr, M, 0, imin(kNB, M), clamp);
+  grid.sync();
+
+  for (int p = 0; p + 1 < P; ++p) {
+    const int j0 = p * kNB, j1 = j0 + kNB;
+    // 1. the panel rows [j1, M) of each matrix, kBigThreads rows per item
+    const int chunks = (M - j1 + kBigThreads - 1) / kBigThreads;
+    int loaded = -1;
+    for (int it = b; it < K * chunks; it += nb) {
+      const int k = it / chunks;
+      T* l = L + k * MM;
+      if (k != loaded) {
+        __syncthreads();  // the rows of the matrix before have read sD
+        for (int idx = tid; idx < kNB * (kNB / kV); idx += kBigThreads) {
+          const int r = idx / (kNB / kV), q = idx - r * (kNB / kV);
+          T x[kV];
+          load_vec<T, kV>(l + static_cast<size_t>(j0 + r) * M + j0 + q * kV, x);
+          store_vec<T, kV>(sD + r * kLdv<T> + q * kV, x);
+        }
+        __syncthreads();
+        loaded = k;
+      }
+      const int r = j1 + (it - k * chunks) * kBigThreads + tid;
+      if (r < M) panel_solve_row<T>(l + static_cast<size_t>(r) * M + j0, sD);
+    }
+    grid.sync();
+    // 2. the trailing update, tile (I, J), J <= I, of nt x nt per matrix
+    const int nt = (M - j1 + kTile - 1) / kTile;
+    const int per = nt * (nt + 1) / 2;
+    for (int it = b; it < K * per; it += nb) {
+      const int k = it / per, t = it - k * per;
+      int I = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
+      while (I * (I + 1) / 2 > t) --I;
+      while ((I + 1) * (I + 2) / 2 <= t) ++I;
+      const int J = t - I * (I + 1) / 2;
+      T* l = L + k * MM;
+      trailing_tile<T>(l, M, j0, j1 + I * kTile, j1 + J * kTile, sWr, sWc);
+      if (t == 0) {
+        __syncthreads();  // the tile's stores are visible to warp 0
+        if (warp == 0) chol_diag<T, false>(l, l, nullptr, M, j1, imin(kNB, M - j1), clamp);
+      }
+    }
+    grid.sync();
+  }
+}
+
 int optin_smem(int* optin) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -978,61 +1216,119 @@ int optin_smem(int* optin) {
   return static_cast<int>(err);
 }
 
-// The form of one (M, dtype) on a device: resident where the packed
-// triangle fits beside the rest; else streaming with the deepest W^T that
-// fits beside at least 32 staged panel rows, and as many staged rows
-// (multiples of 32, up to one per thread) as then fit.  smem 0: M beyond
-// the limit.
+// The least M that takes the large form, for K matrices: below it one CTA
+// per matrix (streaming) is faster, from it on the large form is.  Both
+// forms side by side on an H100 (device ms, K in {1, 2, 8, 17, 40}, M from
+// 296 to 640; scripts/chol_forms_ab.py, PERF.md): f32 streaming wins up to
+// M = 392 at K <= 2 and up to 440 at K = 8 ((40, 320): 0.176 against
+// 0.328), the large form from 440 (K <= 2) and 488 (K = 8; (1, 488): 0.381
+// against 0.466); in f64 the large form wins from 296-320 at K <= 2 and
+// from 392 at K >= 8 ((17, 320): 0.338 streaming against 0.408).  More
+// matrices favour one CTA each: at K = 40 streaming wins up to 640 (f32)
+// and 560 (f64).
+template <typename T>
+int chol_large_from(int K) {
+  if (sizeof(T) == 4) return K >= 8 ? 488 : 392;
+  return K >= 8 ? 392 : 296;
+}
+
+// The form of one (K, M, dtype) on a device: resident where the packed
+// triangle fits beside the rest in the 227 KB opt-in (f32 M <= 288, f64 M
+// <= 192 on an H100); below chol_large_from(K) streaming, with the deepest
+// W^T that fits beside at least 32 staged panel rows and as many staged
+// rows (multiples of 32, up to one per thread) as then fit; else the large
+// form on a grid of `grid` CTAs, as many as the card holds at once (a
+// cooperative launch needs them all resident).
+enum class CholForm { kResident, kStreaming, kLarge };
+
 struct CholLaunch {
-  bool resident;
+  CholForm form;
   int kc, rs;
   size_t smem;
+  int grid;
 };
-
-template <typename T>
-CholLaunch plan_chol(int M, size_t optin) {
-  if (M > kCholMaxM<T>) return {false, 0, 0, 0};
-  if (chol_smem<T>(M, true, kNB, 0) <= optin) return {true, kNB, 0, chol_smem<T>(M, true, kNB, 0)};
-  const int rows = (M + kNB - 1) / kNB * kNB - kNB;  // panel rows below the first block
-  for (int kc = kNB; kc >= 8; kc /= 2) {
-    int rs = imin(kCholThreads, rows);
-    while (rs > kNB && chol_smem<T>(M, false, kc, rs) > optin) rs -= kNB;
-    if (chol_smem<T>(M, false, kc, rs) <= optin) return {false, kc, rs, chol_smem<T>(M, false, kc, rs)};
-  }
-  return {false, 0, 0, 0};
-}
 
 template <typename T>
 using CholKernel = void (*)(const T*, T*, int, int, int, T);
 
 template <typename T>
+int plan_chol(int K, int M, CholLaunch* out) {
+  int optin = 0;
+  if (int err = optin_smem(&optin)) return err;
+  const size_t cap = static_cast<size_t>(optin);
+  for (CholKernel<T> kernel : {chol_kernel<T, true>, chol_kernel<T, false>})
+    if (cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin))
+      return static_cast<int>(err);
+  if (chol_smem<T>(M, true, kNB, 0) <= cap) {
+    *out = {CholForm::kResident, kNB, 0, chol_smem<T>(M, true, kNB, 0), 0};
+    return 0;
+  }
+  if (M < chol_large_from<T>(K)) {
+    const int rows = (M + kNB - 1) / kNB * kNB - kNB;  // panel rows below the first block
+    for (int kc = kNB; kc >= 8; kc /= 2) {
+      int rs = imin(kCholThreads, rows);
+      while (rs > kNB && chol_smem<T>(M, false, kc, rs) > cap) rs -= kNB;
+      if (chol_smem<T>(M, false, kc, rs) <= cap) {
+        *out = {CholForm::kStreaming, kc, rs, chol_smem<T>(M, false, kc, rs), 0};
+        return 0;
+      }
+    }
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_big_kernel<T>,
+                                                        kBigThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *out = {CholForm::kLarge, 0, 0, 0, sms * per_sm};
+  return 0;
+}
+
+template <typename T>
 int launch_chol(const void* A, void* L, int K, int M, double clamp, void* stream) {
   static std::mutex mu;
-  static std::map<std::array<int, 2>, CholLaunch> plans;
+  static std::map<std::array<int, 3>, CholLaunch> plans;
   int dev = 0;
   if (cudaError_t err = cudaGetDevice(&dev)) return static_cast<int>(err);
   CholLaunch c;
   {
     std::lock_guard<std::mutex> lock(mu);
-    const std::array<int, 2> key = {dev, M};
+    const std::array<int, 3> key = {dev, K, M};
     auto it = plans.find(key);
     if (it == plans.end()) {
-      int optin = 0;
-      if (int err = optin_smem(&optin)) return err;
-      c = plan_chol<T>(M, static_cast<size_t>(optin));
-      if (!c.smem) return static_cast<int>(cudaErrorInvalidValue);
-      for (CholKernel<T> kernel : {chol_kernel<T, true>, chol_kernel<T, false>})
-        if (cudaError_t err =
-                cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin))
-          return static_cast<int>(err);
+      if (int err = plan_chol<T>(K, M, &c)) return err;
       it = plans.emplace(key, c).first;
     }
     c = it->second;
   }
-  const CholKernel<T> kernel = c.resident ? chol_kernel<T, true> : chol_kernel<T, false>;
-  kernel<<<K, kCholThreads, c.smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), static_cast<T*>(L), M, c.kc, c.rs, static_cast<T>(clamp));
+  const T* a = static_cast<const T*>(A);
+  T* l = static_cast<T*>(L);
+  T cl = static_cast<T>(clamp);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c.form == CholForm::kLarge) {
+    void* args[] = {&a, &l, &K, &M, &cl};
+    if (cudaError_t err = cudaLaunchCooperativeKernel(
+            reinterpret_cast<void*>(chol_big_kernel<T>), dim3(c.grid), dim3(kBigThreads), args, 0, s))
+      return static_cast<int>(err);
+  } else if (c.form == CholForm::kResident) {
+    chol_kernel<T, true><<<K, kCholThreads, c.smem, s>>>(a, l, M, c.kc, c.rs, cl);
+  } else {
+    chol_kernel<T, false><<<K, kCholThreads, c.smem, s>>>(a, l, M, c.kc, c.rs, cl);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The form plan_chol takes for (K, M) on the current device: 0 resident,
+// 1 streaming, 2 large.
+template <typename T>
+int chol_form(int K, int M, int* out) {
+  CholLaunch c;
+  if (int err = plan_chol<T>(K, M, &c)) return err;
+  *out = static_cast<int>(c.form);
+  return 0;
 }
 
 // The largest M of the resident form on the current device (0 if none).
@@ -1041,8 +1337,7 @@ int resident_max_m(int* out) {
   int optin = 0;
   if (int err = optin_smem(&optin)) return err;
   *out = 0;
-  for (int M = 8; M <= kCholMaxM<T>; M += 8)
-    if (plan_chol<T>(M, static_cast<size_t>(optin)).resident) *out = M;
+  for (int M = 8; chol_smem<T>(M, true, kNB, 0) <= static_cast<size_t>(optin); M += 8) *out = M;
   return 0;
 }
 
@@ -1203,6 +1498,9 @@ int slampp_trsm_bwd_f64(const void* L, const void* B, void* X, int K, int M, int
 }
 int slampp_chol_resident_max(int f64, int* out) {
   return f64 ? resident_max_m<double>(out) : resident_max_m<float>(out);
+}
+int slampp_chol_form(int f64, int K, int M, int* out) {
+  return f64 ? chol_form<double>(K, M, out) : chol_form<float>(K, M, out);
 }
 const char* slampp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

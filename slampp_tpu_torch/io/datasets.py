@@ -1,10 +1,13 @@
 """Synthetic dataset generators (counterpart of ``slampp_tpu/io/datasets.py``).
 
 ``make_manhattan`` (SE(2) pose graph), ``make_city_trees`` (SE(2) poses
-and landmarks), ``make_sphere`` (SE(3) pose graph) and
-``make_sphere_landmarks`` (SE(3) poses and XYZ landmarks) are NumPy copies
-of the JAX package's generators: for the same arguments they emit
-byte-identical g2o text, so both packages optimize the same graph.
+and landmarks), ``make_sphere`` (SE(3) pose graph),
+``make_sphere_landmarks`` (SE(3) poses and XYZ landmarks), ``make_ba_scene``
+and ``make_ba_scene_incremental`` (bundle adjustment: cameras on a ring, a
+point cloud) are NumPy copies of the JAX package's generators: for the same
+arguments they emit byte-identical g2o text, so both packages optimize the
+same graph.  ``make_venice_ba_arrays`` (venice871-class BA) returns the
+same arrays as the JAX package's.
 ``sphere_text`` is the sphere graph the port's apps run, at one ring per
 50 poses unless told otherwise.
 """
@@ -268,6 +271,208 @@ def make_sphere_landmarks(
                 % (i, lm_id[l], *h, *info6)
             )
     return "\n".join(lines) + "\n", (gt, lms)
+
+
+def make_ba_scene(
+    n_cams: int = 20,
+    n_points: int = 500,
+    obs_per_point: int = 6,
+    pix_noise: float = 1.0,
+    point_init_noise: float = 0.1,
+    cam_init_rot_noise: float = 0.0,
+    seed: int = 0,
+    fx: float = 500.0,
+):
+    """Synthetic BA (venice-like structure): cameras on a ring looking at the
+    origin, Gaussian point cloud; emits VERTEX_CAM / VERTEX_XYZ /
+    EDGE_PROJECT_P2MC.  Ground-truth projections get pixel noise; initial
+    vertex states get perturbation so GN has work to do.
+
+    Returns (g2o_text, (gt_cam_states, gt_points)).
+    """
+    rng = np.random.default_rng(seed)
+    intr = np.array([fx, fx, 320.0, 240.0, 0.0])
+
+    cams_w2c = []  # internal-convention states (world-to-camera, (t, aa))
+    cam_lines = []
+    R_all = []
+    for c in range(n_cams):
+        a = 2 * np.pi * c / n_cams
+        center = np.array([8.0 * np.cos(a), 8.0 * np.sin(a), 2.0])
+        # camera looks at origin: z axis toward -center
+        z = -center / np.linalg.norm(center)
+        x = np.cross(np.array([0.0, 0.0, 1.0]), z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        R_c2w = np.stack([x, y, z], axis=1)  # columns are camera axes in world
+        R_w2c = R_c2w.T
+        t_w2c = -R_w2c @ center
+        aa = _np_quat_to_aa(_np_rot_to_quat_np(R_w2c))
+        cams_w2c.append(np.concatenate([t_w2c, aa, intr]))
+        R_all.append(R_w2c)
+        # dataset line carries camera-to-world quaternion + position
+        q_c2w = _np_rot_to_quat_np(R_c2w)
+        cam_lines.append(
+            "VERTEX_CAM %d %.9f %.9f %.9f %.9f %.9f %.9f %.9f %.3f %.3f %.3f %.3f %.6f"
+            % (c, *center, q_c2w[1], q_c2w[2], q_c2w[3], q_c2w[0], *intr)
+        )
+    cams_w2c = np.stack(cams_w2c)
+
+    pts = rng.normal(0, 2.0, (n_points, 3))
+    pt_lines = []
+    obs_lines = []
+    info = 1.0 / pix_noise**2
+    for p in range(n_points):
+        noisy_pt = pts[p] + rng.normal(0, point_init_noise, 3)
+        pt_lines.append(
+            "VERTEX_XYZ %d %.9f %.9f %.9f" % (n_cams + p, *noisy_pt)
+        )
+        cams = rng.choice(n_cams, size=min(obs_per_point, n_cams), replace=False)
+        for c in cams:
+            st = cams_w2c[c]
+            x = R_all[c] @ pts[p] + st[0:3]
+            if x[2] < 0.5:
+                continue
+            u = intr[0] * x[0] / x[2] + intr[2]
+            v = intr[1] * x[1] / x[2] + intr[3]
+            u += rng.normal(0, pix_noise)
+            v += rng.normal(0, pix_noise)
+            obs_lines.append(
+                "EDGE_PROJECT_P2MC %d %d %.6f %.6f %.6f 0.0 %.6f"
+                % (n_cams + p, c, u, v, info, info)
+            )
+    text = "\n".join(cam_lines + pt_lines + obs_lines) + "\n"
+    return text, (cams_w2c, pts)
+
+
+def make_ba_scene_incremental(n_cams: int = 10, n_points: int = 120, seed: int = 0, **kw):
+    """Incremental-BA ordering of :func:`make_ba_scene`: cameras appear one
+    at a time followed by the newly-visible points and observations, with
+    CONSISTENCY_MARKER records at each consistent state (the reference's
+    incremental BA format, data/Readme.txt and scripts/incremental_BA/)."""
+    text, gt = make_ba_scene(n_cams=n_cams, n_points=n_points, seed=seed, **kw)
+    cam_lines, pt_lines, obs_lines = [], [], []
+    for line in text.strip().splitlines():
+        if line.startswith("VERTEX_CAM"):
+            cam_lines.append(line)
+        elif line.startswith("VERTEX_XYZ"):
+            pt_lines.append(line)
+        else:
+            obs_lines.append(line)
+    # group observations by camera
+    by_cam = {}
+    for line in obs_lines:
+        cam = int(line.split()[2])
+        by_cam.setdefault(cam, []).append(line)
+    emitted_pts = set()
+    out = []
+    for c in range(n_cams):
+        out.append(cam_lines[c])
+        for line in by_cam.get(c, []):
+            pid = int(line.split()[1])
+            if pid not in emitted_pts:
+                emitted_pts.add(pid)
+                out.append(pt_lines[pid - n_cams])
+        out.extend(by_cam.get(c, []))
+        if c >= 1:  # first consistent state needs two cameras
+            out.append("CONSISTENCY_MARKER")
+    return "\n".join(out) + "\n", gt
+
+
+def _np_rot_to_quat_np(R):
+    t = np.trace(R)
+    qw = np.sqrt(max(0.0, 1.0 + t)) / 2.0
+    qx = np.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2])) / 2.0
+    qy = np.sqrt(max(0.0, 1.0 - R[0, 0] + R[1, 1] - R[2, 2])) / 2.0
+    qz = np.sqrt(max(0.0, 1.0 - R[0, 0] - R[1, 1] + R[2, 2])) / 2.0
+    qx = np.copysign(qx, R[2, 1] - R[1, 2])
+    qy = np.copysign(qy, R[0, 2] - R[2, 0])
+    qz = np.copysign(qz, R[1, 0] - R[0, 1])
+    q = np.array([qw, qx, qy, qz])
+    return q / np.linalg.norm(q)
+
+
+def make_venice_ba_arrays(
+    n_cams: int = 871,
+    n_points: int = 110_000,
+    mean_track: int = 10,
+    pix_noise: float = 1.0,
+    point_init_noise: float = 0.05,
+    seed: int = 0,
+    fx: float = 500.0,
+):
+    """Venice-871-class synthetic BA as ARRAYS (no g2o text: at >=1e6
+    observations a line-based file would dominate setup time).  Matches the
+    reference's venice871.g2o shape class (unit_tests.sh:182-188): 871
+    cameras, ~1e5 landmarks, ~1e6+ observations, long-tailed track lengths.
+
+    Returns (cam_states (n_c, 11) [t_w2c, axis-angle, intrinsics],
+             lm_states (n_l, 3) noisy init, obs_cam, obs_lm, uv (m, 2),
+             info (m, 2, 2), gt_points).
+    """
+    rng = np.random.default_rng(seed)
+    intr = np.array([fx, fx, 320.0, 240.0, 0.0])
+
+    # cameras on two concentric rings over a "canal city" disc
+    cam_states = np.zeros((n_cams, 11))
+    R_all = np.zeros((n_cams, 3, 3))
+    centers = np.zeros((n_cams, 3))
+    for c in range(n_cams):
+        ring = c % 2
+        a = 2 * np.pi * (c // 2) / max(1, (n_cams + 1) // 2) + ring * 0.03
+        radius = 14.0 + 4.0 * ring
+        center = np.array([radius * np.cos(a), radius * np.sin(a), 3.0 + ring])
+        z = -center / np.linalg.norm(center)
+        x = np.cross(np.array([0.0, 0.0, 1.0]), z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        R_w2c = np.stack([x, y, z], axis=1).T
+        t_w2c = -R_w2c @ center
+        aa = _np_quat_to_aa(_np_rot_to_quat_np(R_w2c))
+        cam_states[c] = np.concatenate([t_w2c, aa, intr])
+        R_all[c] = R_w2c
+        centers[c] = center
+
+    # landmark cloud inside the rings; long-tailed track lengths
+    pts = rng.normal(0, 4.0, (n_points, 3)) * np.array([1.0, 1.0, 0.4])
+    tracks = np.clip(rng.geometric(1.0 / mean_track, n_points), 2, 60)
+
+    # visibility: landmarks are seen from an arc of consecutive cameras
+    # (Venice-style coverage), vectorized construction
+    m = int(tracks.sum())
+    obs_lm = np.repeat(np.arange(n_points), tracks)
+    base_cam = rng.integers(0, n_cams, n_points)
+    within = np.arange(m) - np.repeat(np.cumsum(tracks) - tracks, tracks)
+    obs_cam = (np.repeat(base_cam, tracks) + within * 2) % n_cams
+
+    # project (vectorized); keep only physically valid observations (point
+    # in front of the camera and inside a generous sensor window)
+    Xc = np.einsum("mij,mj->mi", R_all[obs_cam], pts[obs_lm]) + cam_states[obs_cam, 0:3]
+    z = Xc[:, 2]
+    u = fx * Xc[:, 0] / np.where(z > 0.5, z, 1.0) + intr[2]
+    v = fx * Xc[:, 1] / np.where(z > 0.5, z, 1.0) + intr[3]
+    keep = (z > 0.5) & (np.abs(u - intr[2]) < 4000) & (np.abs(v - intr[3]) < 4000)
+    # landmarks need >= 2 surviving observations to be constrained
+    deg_keep = np.bincount(obs_lm[keep], minlength=n_points)
+    keep &= deg_keep[obs_lm] >= 2
+    obs_cam, obs_lm = obs_cam[keep], obs_lm[keep]
+    m = len(obs_cam)
+    u = u[keep] + rng.normal(0, pix_noise, m)
+    v = v[keep] + rng.normal(0, pix_noise, m)
+    uv = np.stack([u, v], 1)
+    w = 1.0 / pix_noise**2
+    info = np.broadcast_to(np.eye(2) * w, (m, 2, 2)).copy()
+
+    # drop now-unconstrained landmarks (renumber contiguously)
+    used = np.flatnonzero(np.bincount(obs_lm, minlength=n_points) >= 2)
+    remap = np.full(n_points, -1, np.int64)
+    remap[used] = np.arange(len(used))
+    sel = remap[obs_lm] >= 0
+    obs_cam, obs_lm, uv, info = obs_cam[sel], remap[obs_lm[sel]], uv[sel], info[sel]
+    pts = pts[used]
+
+    lm_init = pts + rng.normal(0, point_init_noise, (len(pts), 3))
+    return cam_states, lm_init, obs_cam.astype(np.int64), obs_lm.astype(np.int64), uv, info, pts
 
 
 def default_rings(n_poses: int) -> int:

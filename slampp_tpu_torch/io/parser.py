@@ -289,13 +289,14 @@ def detect_problem(records: Iterable[ParsedRecord]) -> str:
 
 
 # record kinds whose models are not ported yet -> their ROADMAP.md queue 1 item
-_NOT_PORTED = {
-    **dict.fromkeys(("vertex_xyz", "vertex_cam", "vertex_scam", "vertex_intrinsics",
-                     "edge_p2c", "edge_p2ci", "edge_p2sc"), "item 6 (BA)"),
-    **dict.fromkeys(("vertex_spheron", "edge_spheron_xyz", "vertex_posvel", "vertex_rocv_lm",
-                     "rocv_transmitter_uf", "edge_rocv_dt", "edge_rocv_range"),
-                    "item 10 (Sim(3), ROCV and Spheron)"),
-}
+_NOT_PORTED = dict.fromkeys(
+    ("vertex_spheron", "edge_spheron_xyz", "vertex_posvel", "vertex_rocv_lm",
+     "rocv_transmitter_uf", "edge_rocv_dt", "edge_rocv_range"),
+    "item 10 (Sim(3), ROCV and Spheron)")
+
+# BA vertex record kind -> vertex type (the dataset's own states)
+_VERTICES = {"vertex_xyz": "xyz", "vertex_cam": "cam", "vertex_scam": "scam",
+             "vertex_intrinsics": "intrinsics"}
 
 # pose-graph record kind -> (model module, edge type, initializers attribute)
 _EDGES = {
@@ -304,6 +305,9 @@ _EDGES = {
     "landmark2_rb": ("se2", "edge_pose_landmark2d_rb", "POSE_LANDMARK_RB_INITIALIZERS"),
     "edge3": ("se3", "edge_pose3d", "POSE_POSE3D_INITIALIZERS"),
     "landmark3_xyz": ("se3", "edge_pose_landmark3d", "POSE_LANDMARK3D_INITIALIZERS"),
+    "edge_p2c": ("ba", "edge_p2c", None),
+    "edge_p2ci": ("ba", "edge_p2ci", None),
+    "edge_p2sc": ("ba", "edge_p2sc", None),
 }
 
 
@@ -321,15 +325,17 @@ def build_system(
     calls solver.Incremental_Step per appended edge, ParseLoop.h:188-199);
     ``on_marker(system)`` fires at CONSISTENCY_MARKER records.  ``problem``
     is accepted for the JAX package's signature: there it only tells BA
-    vertex lines from pose-graph ones, and the port takes no BA records.
+    vertex lines from pose-graph ones, which the record kinds already do.
     Pose-graph problems ignore VERTEX ground-truth lines
     (CIgnoreAllVertexTraits, Solve2DImpl.cpp:50) and initialize vertices by
-    composing measurements.  A record whose model is not ported raises
-    ``ValueError`` naming its ROADMAP.md item.  Returns the populated system."""
+    composing measurements; BA vertex lines (VERTEX_XYZ, VERTEX_CAM,
+    VERTEX_SCAM, VERTEX_INTRINSICS) carry the states the edges start from.
+    A record whose model is not ported raises ``ValueError`` naming its
+    ROADMAP.md item.  Returns the populated system."""
     from slampp_tpu_torch.graph.system import GraphSystem
-    from slampp_tpu_torch.models import se2, se3
+    from slampp_tpu_torch.models import ba, se2, se3
 
-    models = {"se2": se2, "se3": se3}
+    models = {"se2": se2, "se3": se3, "ba": ba}
     del problem
     if system is None:
         system = GraphSystem()
@@ -343,12 +349,16 @@ def build_system(
             # ground truth of pose problems, data-association hints and
             # ROCV phase delimiters: bookkeeping only, as in the JAX package
             continue
+        if k in _VERTICES:
+            system.add_vertex(_VERTICES[k], rec.ids[0], rec.values)
+            continue
         if k not in _EDGES:
             item = _NOT_PORTED.get(k)
             raise ValueError(f"unhandled record kind {k!r}" + (
                 f": its model is not ported yet (ROADMAP.md queue 1 {item})" if item else ""))
         model, etype, inits = _EDGES[k]
-        system.add_edge(etype, rec.ids, rec.values, rec.info, getattr(models[model], inits))
+        system.add_edge(etype, rec.ids, rec.values, rec.info,
+                        getattr(models[model], inits) if inits else None)
         if on_edge is not None:
             on_edge(system, system.n_edges)
     return system

@@ -87,6 +87,8 @@ def load() -> ctypes.CDLL:
                     fn.restype = i32
             lib.slampp_chol_resident_max.argtypes = [i32, ctypes.POINTER(i32)]
             lib.slampp_chol_resident_max.restype = i32
+            lib.slampp_chol_form.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+            lib.slampp_chol_form.restype = i32
             lib.slampp_error_string.argtypes = [i32]
             lib.slampp_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -165,7 +165,8 @@ def chol_batched(A: torch.Tensor, clamp: float = 1e-8) -> torch.Tensor:
 def chol_resident_max_m(dtype: torch.dtype, device="cuda") -> int:
     """The largest M at which the Cholesky kernel keeps the matrix resident
     in shared memory on ``device`` (a larger M streams it through the
-    output buffer), from the kernel's own plan."""
+    output buffer, or takes the large form: ``chol_form``), from the
+    kernel's own plan."""
     from slampp_tpu_torch.ops import _cuda
 
     lib = _cuda.load()
@@ -174,6 +175,25 @@ def chol_resident_max_m(dtype: torch.dtype, device="cuda") -> int:
         _cuda.check(lib, lib.slampp_chol_resident_max(int(dtype == torch.float64),
                                                       ctypes.byref(out)), "chol_resident_max_m")
     return out.value
+
+
+CHOL_FORMS = ("resident", "streaming", "large")
+
+
+def chol_form(dtype: torch.dtype, K: int, M: int, device="cuda") -> str:
+    """The form the Cholesky kernel takes for K (M, M) matrices of ``dtype``
+    on ``device``: "resident" (one CTA per matrix, the matrix in shared
+    memory), "streaming" (one CTA per matrix, the factor formed in the
+    output) or "large" (every SM on each matrix, one cooperative launch),
+    from the kernel's own plan."""
+    from slampp_tpu_torch.ops import _cuda
+
+    lib = _cuda.load()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        _cuda.check(lib, lib.slampp_chol_form(int(dtype == torch.float64), K, M,
+                                              ctypes.byref(out)), "chol_form")
+    return CHOL_FORMS[out.value]
 
 
 def _trsm(name: str, kind: str, L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -15,9 +15,8 @@ import torch
 
 from slampp_tpu_torch.core import assembly
 from slampp_tpu_torch.graph.system import GraphArrays, GraphSystem
-from slampp_tpu_torch.graph.types import get_vertex_type
 from slampp_tpu_torch.linear.dense import solve_spd
-from slampp_tpu_torch.solvers.lm import SCHUR_NOT_PORTED, warn_not_positive_definite
+from slampp_tpu_torch.solvers.lm import sparse_schur_applies, warn_not_positive_definite
 from slampp_tpu_torch.utils.device import require_device
 from slampp_tpu_torch.utils.timer import PhaseTimer
 
@@ -50,15 +49,15 @@ def _dogleg_step(graph: GraphArrays, delta: float, relin_threshold: float = 0.0)
 
 
 class DoglegSolver:
-    """Batch dogleg.  ``engine``: "auto", "dense" or "v3" (the partitioned
-    engine with ``refine_iters=2``).  "auto" is dense, except on a landmark
-    graph of ``SPARSE_SCHUR_THRESHOLD`` vertices or more, where the JAX
-    package takes its sparse Schur engine: there ``optimize`` raises, as
-    that engine is not ported yet (ROADMAP.md queue 1 item 6).  ``pad`` as
-    in :class:`~slampp_tpu_torch.solvers.lm.LevenbergMarquardtSolver`."""
+    """Batch dogleg.  ``engine``: "auto", "dense", "v3" (the partitioned
+    engine with ``refine_iters=2``) or "schur_sparse" (observation-wise
+    landmark elimination + the v3 pose solve, H never formed).  "auto" is
+    dense, except on a landmark graph of ``lm.SPARSE_SCHUR_THRESHOLD``
+    vertices or more, where it takes the sparse Schur engine, as the JAX
+    package does; an explicit "dense" stays dense.  ``pad`` as in
+    :class:`~slampp_tpu_torch.solvers.lm.LevenbergMarquardtSolver`."""
 
     name = "lambda_dl"
-    SPARSE_SCHUR_THRESHOLD = 1500  # the JAX package's SLAMPP_SPARSE_SCHUR_THRESHOLD default
 
     def __init__(
         self,
@@ -70,9 +69,7 @@ class DoglegSolver:
         engine: str = "auto",
         device="cuda",
     ):
-        if engine == "schur_sparse":
-            raise NotImplementedError(SCHUR_NOT_PORTED.format("DoglegSolver"))
-        if engine not in ("auto", "dense", "v3"):
+        if engine not in ("auto", "dense", "v3", "schur_sparse"):
             raise ValueError(f"unknown engine {engine!r}")
         self.system = system
         self.verbose = verbose
@@ -82,8 +79,23 @@ class DoglegSolver:
         self.engine = engine
         self.device = torch.device(device)
         self._v3 = None
+        self._ss = None
         self.timer = PhaseTimer()
         self.n_iterations = 0
+
+    def _resolve_engine(self) -> str:
+        if self.engine == "auto":
+            return "schur_sparse" if sparse_schur_applies(self.system) else "dense"
+        return self.engine
+
+    def _ss_solver(self):
+        if self._ss is None:
+            from slampp_tpu_torch.linear.schur_sparse import SparseSchurSolver
+
+            with self.timer.phase("schur_sparse_symbolic"):
+                self._ss = SparseSchurSolver(self.system, device=self.device)
+                self._ss.ensure_symbolic()
+        return self._ss
 
     def _v3_solver(self):
         if self._v3 is None:
@@ -98,17 +110,16 @@ class DoglegSolver:
         require_device(self.device, "DoglegSolver")
         if self.system.n_edges == 0:
             return 0
-        if (self.engine == "auto" and self.system.n_vertices >= self.SPARSE_SCHUR_THRESHOLD
-                and any(get_vertex_type(t).is_landmark for t in self.system.vertex_type_names)):
-            raise NotImplementedError(SCHUR_NOT_PORTED.format("DoglegSolver"))
+        engine = self._resolve_engine()
         graph = self.system.snapshot(self.device)
         last_error = float(assembly.graph_chi2(graph))
         applied = 0
         for it in range(max_iterations):
             self.n_iterations += 1
             with self.timer.phase("dogleg_step"):
-                if self.engine == "v3":
-                    new_states, pred, dx_norm, _ = self._v3_solver().dogleg_step(
+                if engine in ("v3", "schur_sparse"):
+                    eng = self._v3_solver() if engine == "v3" else self._ss_solver()
+                    new_states, pred, dx_norm, _ = eng.dogleg_step(
                         graph, self.radius, self.relin_threshold)
                 else:
                     new_states, _, pred, dx_norm, _ = _dogleg_step(

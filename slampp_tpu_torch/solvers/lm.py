@@ -12,6 +12,13 @@ The reference's baseline damping policy, exactly as in the JAX package:
   * damping is additive on the lambda diagonal (ApplyDamping, :235-243).
 The loop runs on the host and reads dx_norm, the gain-ratio denominator and
 the candidate's chi2 back each iteration, as the JAX package does.
+
+The Schur engines: ``use_schur`` eliminates the landmarks of the dense
+Hessian (``linear/schur.py``), and on a landmark graph of
+``SPARSE_SCHUR_THRESHOLD`` vertices or more takes the sparse Schur engine
+instead (``linear/schur_sparse.py``, as ``engine="schur_sparse"``);
+``engine="big_ba"`` runs the observation-driven BA solver
+(``linear/ba_schur.BigBASolver``, float32 SC).
 """
 
 from __future__ import annotations
@@ -23,12 +30,21 @@ import torch
 
 from slampp_tpu_torch.core import assembly
 from slampp_tpu_torch.graph.system import GraphArrays, GraphSystem
+from slampp_tpu_torch.graph.types import get_vertex_type
 from slampp_tpu_torch.linear.dense import solve_spd
 from slampp_tpu_torch.utils.device import require_device
 from slampp_tpu_torch.utils.timer import PhaseTimer
 
-SCHUR_NOT_PORTED = ("{}: the Schur engines (schur, schur_sparse, big_ba) are not ported yet "
-                    "(ROADMAP.md queue 1 item 6)")
+# a landmark graph of this many vertices or more takes the sparse Schur
+# engine on the Schur routes (the JAX package's SLAMPP_SPARSE_SCHUR_THRESHOLD
+# default; the port reads no environment)
+SPARSE_SCHUR_THRESHOLD = 1500
+
+
+def sparse_schur_applies(system: GraphSystem) -> bool:
+    """A landmark graph of SPARSE_SCHUR_THRESHOLD vertices or more."""
+    return (system.n_vertices >= SPARSE_SCHUR_THRESHOLD
+            and any(get_vertex_type(t).is_landmark for t in system.vertex_type_names))
 
 
 def _damped_step(graph: GraphArrays, H: torch.Tensor, g: torch.Tensor, alpha: float):
@@ -49,11 +65,13 @@ def warn_not_positive_definite() -> None:
 
 
 class LevenbergMarquardtSolver:
-    """Batch LM.  ``engine``: "dense" (the full Hessian) or "v3" (the
-    partitioned block-sparse engine, uniform block size, with
-    ``refine_iters=2``).  ``pad`` is accepted for the JAX package's
-    signature: the port compiles nothing per shape, so it snapshots
-    unpadded either way."""
+    """Batch LM.  ``engine``: "dense" (the full Hessian, landmarks
+    eliminated first with ``use_schur``), "v3" (the partitioned
+    block-sparse engine, uniform block size, with ``refine_iters=2``),
+    "schur_sparse" (observation-wise landmark elimination + the v3 pose
+    solve) or "big_ba" (``BigBASolver``, mono cam / xyz BA).  ``pad`` is
+    accepted for the JAX package's signature: the port compiles nothing per
+    shape, so it snapshots unpadded either way."""
 
     name = "lambda_lm"
 
@@ -67,9 +85,7 @@ class LevenbergMarquardtSolver:
         engine: str = "dense",
         device="cuda",
     ):
-        if use_schur or engine in ("schur_sparse", "big_ba"):
-            raise NotImplementedError(SCHUR_NOT_PORTED.format("LevenbergMarquardtSolver"))
-        if engine not in ("dense", "v3"):
+        if engine not in ("dense", "v3", "schur_sparse", "big_ba"):
             raise ValueError(f"unknown engine {engine!r}")
         self.system = system
         self.use_schur = use_schur
@@ -81,6 +97,33 @@ class LevenbergMarquardtSolver:
         self.timer = PhaseTimer()
         self.n_iterations = 0
         self._v3 = None
+        self._ss = None
+        self._big = None
+        self._schur_plan = None
+
+    def _resolve_engine(self) -> str:
+        """dense + use_schur becomes the sparse Schur engine on a large
+        landmark graph (the gate of GaussNewtonSolver._resolve_solver)."""
+        if self.engine == "dense" and self.use_schur and sparse_schur_applies(self.system):
+            return "schur_sparse"
+        return self.engine
+
+    def _ss_solver(self):
+        if self._ss is None:
+            from slampp_tpu_torch.linear.schur_sparse import SparseSchurSolver
+
+            with self.timer.phase("schur_sparse_symbolic"):
+                self._ss = SparseSchurSolver(self.system, device=self.device)
+                self._ss.ensure_symbolic()
+        return self._ss
+
+    def _plan(self):
+        if self._schur_plan is None:
+            from slampp_tpu_torch.linear.schur import build_schur_plan
+
+            with self.timer.phase("schur_symbolic"):
+                self._schur_plan = build_schur_plan(self.system).to(self.device)
+        return self._schur_plan
 
     def _v3_solver(self):
         if self._v3 is None:
@@ -96,6 +139,20 @@ class LevenbergMarquardtSolver:
         require_device(self.device, "LevenbergMarquardtSolver")
         if self.system.n_edges == 0:
             return 0
+        engine = self._resolve_engine()
+        if engine == "big_ba":
+            # the observation-driven Schur LM, no dense Hessian at any point
+            # (the reference's default BA route, Main.cpp:203-207)
+            from slampp_tpu_torch.linear.ba_schur import BigBASolver
+
+            if self._big is None:
+                with self.timer.phase("big_ba_symbolic"):
+                    self._big = BigBASolver(self.system, verbose=self.verbose, tau=self.tau,
+                                            sc_f64=False, device=self.device)
+            with self.timer.phase("solve"):
+                applied = self._big.optimize(max_iterations, min_dx_norm)
+            self.n_iterations += max_iterations
+            return applied
         graph = self.system.snapshot(self.device)
         alpha = self.tau * float(assembly.max_edge_hessian_diag(graph))
         nu = 2.0
@@ -105,15 +162,22 @@ class LevenbergMarquardtSolver:
         while it < max_iterations:
             it += 1
             self.n_iterations += 1
-            if self.engine == "v3":
+            if engine in ("v3", "schur_sparse"):
+                eng = self._v3_solver() if engine == "v3" else self._ss_solver()
                 with self.timer.phase("solve"):
-                    new_states, denom, dx_norm, _ = self._v3_solver().damped_step(graph, alpha)
+                    new_states, denom, dx_norm, _ = eng.damped_step(graph, alpha)
                     dx_norm = float(dx_norm)
             else:
                 with self.timer.phase("assemble"):
                     H, g, _ = assembly.assemble_dense(graph)
                 with self.timer.phase("solve"):
-                    new_states, _, denom, dx_norm = _damped_step(graph, H, g, alpha)
+                    if self.use_schur:
+                        from slampp_tpu_torch.linear.schur import schur_solve_dense_damped
+
+                        new_states, _, denom, dx_norm = schur_solve_dense_damped(
+                            graph, H, g, alpha, self._plan())
+                    else:
+                        new_states, _, denom, dx_norm = _damped_step(graph, H, g, alpha)
                     dx_norm = float(dx_norm)
             if not math.isfinite(dx_norm):
                 warn_not_positive_definite()

@@ -52,6 +52,99 @@ def jax_sphere_system(n_poses, n_rings=None, seed=0, landmarks=False):
     return _with_text_file(text, lambda p: build_system(parse_file(p)))
 
 
+def jax_text_system(text):
+    """The JAX package's GraphSystem of a g2o text, through its parser."""
+    from slampp_tpu.io.parser import build_system, parse_file
+
+    return _with_text_file(text, lambda p: build_system(parse_file(p)))
+
+
+def port_text_system(text):
+    """The port's GraphSystem of a g2o text, through its parser."""
+    from slampp_tpu_torch.io.parser import build_system, parse_file
+
+    return _with_text_file(text, lambda p: build_system(parse_file(p)))
+
+
+def ba_scene_text(n_cams=8, n_points=120, **kw):
+    from slampp_tpu.io.datasets import make_ba_scene
+
+    return make_ba_scene(n_cams=n_cams, n_points=n_points, **kw)[0]
+
+
+def city_text(n_poses, n_landmarks, seed=0):
+    from slampp_tpu.io.datasets import make_city_trees
+
+    return make_city_trees(n_poses=n_poses, n_landmarks=n_landmarks, seed=seed)[0]
+
+
+def jax_venice_solver(n_cams, n_points, mean_track, sc_f64, pair_f32=True):
+    """The JAX package's BigBASolver on ``make_venice_ba_arrays``' seed-0
+    scene, as ``bench_venice`` builds it."""
+    from slampp_tpu.io.datasets import make_venice_ba_arrays
+    from slampp_tpu.linear.ba_schur import BigBASolver
+
+    cams, lms, oc, ol, uv, info, _ = make_venice_ba_arrays(
+        n_cams=n_cams, n_points=n_points, mean_track=mean_track, seed=0)
+    return BigBASolver.from_arrays(cams, lms, oc, ol, uv, info, sc_f64=sc_f64,
+                                   pair_f32=pair_f32)
+
+
+def jax_venice_reference(n_cams=871, n_points=110_000, mean_track=10, sc_f64=False,
+                         pair_f32=True):
+    """chip_smoke.py's venice reference: ``bench_venice``'s loop (one first
+    step, then 5 LM iterations with min_dx_norm=0) in the JAX package on the
+    CPU: chi2 before and after, the accepted steps and the seconds it took."""
+    import time
+
+    t0 = time.perf_counter()
+    solver = jax_venice_solver(n_cams, n_points, mean_track, sc_f64, pair_f32)
+    solver._make_step()
+    chi2_0 = float(solver._chi2_fn(solver.plan, solver._cams, solver._lms))
+    solver._step(solver._cams, solver._lms, 1e-3)[2].block_until_ready()
+    applied = solver.optimize(max_iterations=5, min_dx_norm=0.0)
+    return {"n_cams": n_cams, "n_points": n_points, "mean_track": mean_track,
+            "sc_f64": sc_f64, "pair_f32": pair_f32, "n_obs": int(solver.plan.n_obs),
+            "chi2_init": chi2_0,
+            "chi2_final": solver.chi2(), "lm_accepted": applied,
+            "seconds": time.perf_counter() - t0}
+
+
+def jax_ba_references():
+    """chip_smoke.py's BA references, on the CPU: the venice871-class scene
+    with a float32 SC (float32 pair products, the bench's setting) and a
+    float64 one (float64 pair products: with float32 ones the float64 SC's
+    LM run follows their rounding, PERF.md), LM on ``make_ba_scene`` with
+    the dense Schur engine, dogleg on cityTrees10k through the sparse Schur
+    engine, and the Schur marginals of ``make_ba_scene``'s Hessian."""
+    from slampp_tpu.core import assembly
+    from slampp_tpu.linear.schur import build_schur_plan
+    from slampp_tpu.marginals.ba_marginals import schur_marginals
+    from slampp_tpu.solvers.dogleg import DoglegSolver
+    from slampp_tpu.solvers.lm import LevenbergMarquardtSolver
+
+    out = {"ba-venice": jax_venice_reference(sc_f64=False),
+           "ba-venice-f64": jax_venice_reference(sc_f64=True, pair_f32=False)}
+    system = jax_text_system(ba_scene_text(20, 500))
+    lm = LevenbergMarquardtSolver(system, use_schur=True)
+    applied = lm.optimize(5, 0.01)
+    out["ba-schur"] = {"n_cams": 20, "n_points": 500, "chi2_final": lm.chi2(), "applied": applied}
+    system = jax_text_system(city_text(10000, 100))
+    dl = DoglegSolver(system)
+    assert dl._resolve_engine() == "schur_sparse"
+    applied = dl.optimize(5, 0.01)
+    out["city-schur-sparse"] = {"n_poses": 10000, "n_landmarks": 100,
+                                "chi2_final": dl.chi2(), "applied": applied}
+    system = jax_text_system(ba_scene_text(20, 500))
+    H, _, _ = assembly.assemble_dense(system.snapshot())
+    cc, ll = schur_marginals(H, build_schur_plan(system), alpha=1e-2)
+    cc, ll = np.asarray(cc), np.asarray(ll)
+    out["ba-marginals"] = {"trace_cc": float(np.trace(cc)),
+                           "trace_ll": float(np.trace(ll, axis1=1, axis2=2).sum()),
+                           "cam0": cc[:6, :6].tolist(), "lm0": ll[0].tolist()}
+    return out
+
+
 def random_block_spd(n, bs, extra_pairs, seed):
     """Random SPD block matrix on a chain plus extra off-diagonal pairs
     (tests/test_sparse_chol.py): (A (n*bs, n*bs), sorted pairs (i, j), i > j)."""
@@ -442,6 +535,118 @@ def fastl_se3_sensitivity(n_poses=500, jax_seeds=13, port_seeds=3):
     return out
 
 
+# FastL's counters, each a gate's decisions summed over the run
+_FASTL_GATES = ("n_solves", "n_freezes", "n_refreezes", "n_relin", "n_full_factor",
+                "n_resumed_factor")
+
+
+def _fastl_trace_record(inc):
+    """A copy of a FastL solver's resident state after one step, read
+    without writing anything back: its counters and {vid: (current,
+    linearization point)} of the live slots."""
+    rec = {k: int(getattr(inc, k)) for k in _FASTL_GATES}
+    rec["N"] = int(inc._N)
+    rec["jitter"] = float(np.max(inc._jitter))
+    states = {}
+    for s, vid in enumerate(inc._slot_vid):
+        t, r = inc._slot_vtrow[s]
+        states[vid] = (inc._vt_cur[t][r].copy(), inc._vt_lin[t][r].copy())
+    rec["states"] = states
+    return rec
+
+
+def fastl_trace(n_poses=500, graph="sphere"):
+    """FastL streamed over the sphere (one ring per 50 poses) at every
+    vertex on the CPU, with each solver's resident NumPy state copied after
+    every step (no chi2() call and no write-back while streaming, so the
+    runs are the ones ``--fastl-se3`` makes): the JAX package ("jax"), the
+    port ("port"), and the JAX package on the port's kernel adapters
+    (``models/torch_kernel_adapter.py``: "jax, port adapters").  Returns
+    the traces (one record per step) and each run's streamed chi2,
+    ``optimize()`` return and final chi2."""
+    from slampp_tpu.models import jax_kernel_adapter as ja
+    from slampp_tpu.solvers import fastl as jfastl
+
+    from slampp_tpu_torch.apps.incremental import run_incremental
+    from slampp_tpu_torch.models import torch_kernel_adapter as ta
+    from slampp_tpu_torch.solvers import fastl as pfastl
+
+    traces = {}
+    makers = ("make_edge_lin", "make_retract", "make_local_diff")
+
+    def traced(module, key, run, adapters=None):
+        orig = module.FastLSolver.incremental_step
+        saved = {m: getattr(ja, m) for m in makers}
+        out = traces.setdefault(key, [])
+
+        def step(self, *a, **kw):
+            res = orig(self, *a, **kw)
+            out.append(_fastl_trace_record(self))
+            return res
+
+        module.FastLSolver.incremental_step = step
+        try:
+            for m, fn in (adapters or {}).items():
+                setattr(ja, m, fn)
+            return run()
+        finally:
+            module.FastLSolver.incremental_step = orig
+            for m, fn in saved.items():
+                setattr(ja, m, fn)
+
+    def jax_run():
+        # the streamed and final chi2 once the stream (and its trace) is over
+        inc = jax_incremental(n_poses, "fastl", graph=graph)
+        chi2_stream = float(inc.chi2())
+        return {"chi2_stream": chi2_stream, "optimize_return": int(inc.optimize()),
+                "chi2_final": float(inc.chi2())}
+
+    outcomes = {"jax": traced(jfastl, "jax", jax_run)}
+    r = traced(pfastl, "port", lambda: run_incremental(n_poses, "cpu", "fastl", graph=graph))
+    outcomes["port"] = {k: r[k] for k in ("chi2_stream", "optimize_return", "chi2_final")}
+    outcomes["jax, port adapters"] = traced(jfastl, "jax, port adapters", jax_run,
+                                            {m: getattr(ta, m) for m in makers})
+    return traces, outcomes
+
+
+def fastl_trace_first_difference(traces, tol=1e-10, a="jax", b="port"):
+    """Where the two traces part: for each step the largest state
+    difference over the vertices both hold live (current states and
+    linearization points apart), the first step beyond ``tol`` and the
+    first steps beyond 1e-8, 1e-6, 1e-4 and 1e-2, each with both records'
+    counters (every gate's decisions summed), jitter and live size, and the
+    first step at which any counter, the live set or the jitter differs."""
+    jt, pt = traces[a], traces[b]
+    keys = _FASTL_GATES + ("N", "jitter")
+    cur, lin, first_gate = [], [], None
+    for i, (ra, rb) in enumerate(zip(jt, pt)):
+        common = set(ra["states"]) & set(rb["states"])
+        dc = max((float(np.abs(ra["states"][v][0] - rb["states"][v][0]).max())
+                  for v in common), default=0.0)
+        dl = max((float(np.abs(ra["states"][v][1] - rb["states"][v][1]).max())
+                  for v in common), default=0.0)
+        cur.append(dc)
+        lin.append(dl)
+        if first_gate is None and (set(ra["states"]) != set(rb["states"])
+                                   or any(ra[k] != rb[k] for k in keys)):
+            first_gate = {"step": i, **{k: (ra[k], rb[k]) for k in keys},
+                          "same_live": set(ra["states"]) == set(rb["states"]),
+                          "before": {k: (jt[i - 1][k], pt[i - 1][k]) for k in keys} if i else None}
+
+    def first_beyond(x):
+        i = next((i for i, d in enumerate(cur) if max(d, lin[i]) > x), None)
+        if i is None:
+            return None
+        return {"step": i, "cur_diff": cur[i], "lin_diff": lin[i],
+                **{k: (jt[i][k], pt[i][k]) for k in keys}}
+
+    return {"runs": (a, b), "steps": (len(jt), len(pt)), "tol": tol,
+            "first_beyond_tol": first_beyond(tol),
+            "first_beyond": {x: first_beyond(x) for x in (1e-8, 1e-6, 1e-4, 1e-2)},
+            "first_gate_difference": first_gate, "cur_diff_by_step": cur,
+            "lin_diff_by_step": lin}
+
+
 def mixed_solver_sensitivity(n_poses=2500, seeds=6):
     """LM and dogleg on the mixed v3 engine on the sphere (one ring per 50
     poses), the JAX package's run as it is, with its float32 Jacobians
@@ -511,6 +716,13 @@ if __name__ == "__main__":
     # under 3 noise seeds; the port on each of the JAX kernel adapters and
     # on all three; 25 runs, about half an hour on one core):
     #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --fastl-se3
+    # and for its BA phases (venice871 class with a float32 and a float64
+    # SC, the dense Schur LM, cityTrees10k dogleg through the sparse Schur
+    # engine, the Schur marginals):
+    #   python tests/_torch_jax_util.py --ba
+    # and the first step at which FastL's sphere500 runs in the two packages
+    # part (their resident states copied after every step):
+    #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --fastl-trace
     # and how far the mixed v3 LM / dogleg results at sphere2500 move with
     # float32 rounding of the JAX package's Jacobians (14 runs, about half
     # an hour):
@@ -528,6 +740,18 @@ if __name__ == "__main__":
     if "--mixed-sensitivity" in sys.argv:
         for run, (chi2, applied) in mixed_solver_sensitivity().items():
             print(json.dumps({"run": run, "chi2": chi2, "applied": applied}), flush=True)
+        sys.exit(0)
+    if "--ba" in sys.argv:
+        for phase, ref in jax_ba_references().items():
+            print(json.dumps({"phase": phase, **ref}), flush=True)
+        sys.exit(0)
+    if "--fastl-trace" in sys.argv:
+        traces, outcomes = fastl_trace()
+        print(json.dumps(outcomes), flush=True)
+        for pair in (("jax", "port"), ("jax, port adapters", "port"),
+                     ("jax", "jax, port adapters")):
+            print(json.dumps(fastl_trace_first_difference(traces, a=pair[0], b=pair[1])),
+                  flush=True)
         sys.exit(0)
     if "--fastl-se3" in sys.argv:
         for run, res in fastl_se3_sensitivity().items():

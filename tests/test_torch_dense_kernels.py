@@ -185,7 +185,7 @@ def _check_chol(A, L):
 
 
 # the first M on each side of the resident / streaming boundary (f32 288 /
-# 296, f64 192 / 200 on a 227 KB opt-in)
+# 296, f64 192 / 200 on a 227 KB opt-in; at K = 3 both M above it stream)
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("side", [0, 8], ids=["resident", "streaming"])
@@ -226,9 +226,9 @@ def _device_spd(cuda, M):
     return G @ G.transpose(1, 2) / M + torch.eye(M, device=cuda, dtype=torch.float64)
 
 
-# large M, where the update takes W^T 16 (f64 1024, f32 2048) and 8
-# columns at a time, up to the largest M per dtype (the plain version would
-# take minutes there): by relative residual against A; and M + 8 raises
+# large M, up to the largest M the one-CTA kernel took before the large
+# form (f64 3104, f32 6336; the plain version would take minutes there): by
+# relative residual against A
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,M,tol", [(torch.float64, 1024, 1e-10),
                                          (torch.float64, 3104, 1e-10),
@@ -243,19 +243,47 @@ def test_cuda_chol_largest_m_residual(cuda, dtype, M, tol):
     assert float((L64 @ L64.transpose(1, 2) - A).abs().max() / A.abs().max()) < tol
 
 
+# the first M beyond the one-CTA kernel's old limits used to raise; the
+# large form takes any M that memory holds, so these factor like any other
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,M", [(torch.float64, 3112), (torch.float32, 6344)])
 def test_cuda_chol_beyond_largest_m_raises(cuda, dtype, M):
-    with pytest.raises(RuntimeError, match="CUDA launch failed"):
-        dk.chol_batched(torch.eye(M, device=cuda, dtype=dtype)[None])
+    A = _device_spd(cuda, M)
+    L = dk.chol_batched(A.to(dtype))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(L).all()) and not bool(torch.triu(L, 1).any())
+    L64 = L.double()
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert float((L64 @ L64.transpose(1, 2) - A).abs().max() / A.abs().max()) < tol
 
 
-# the sphere2500 graph's f64 separator (Ms = 3952) is beyond chol_kernel's
-# largest f64 M (3104): the exact v3 engine must raise there, not return
+# the sphere2500 graph's f64 separator (Ms = 3952, also cityTrees10k's
+# sparse-Schur separator) was beyond the one-CTA kernel's largest f64 M
+# (3104), and the exact v3 engine raised there; the large form factors it,
+# and M = 6400 beyond it, as the plain version does
 @pytest.mark.gpu
-def test_cuda_chol_sphere2500_f64_separator_raises(cuda):
-    with pytest.raises(RuntimeError, match=r"^chol_batched: CUDA launch failed"):
-        dk.chol_batched(torch.eye(3952, device=cuda, dtype=torch.float64)[None])
+@pytest.mark.parametrize("M", [3952, 6400])
+def test_cuda_chol_sphere2500_f64_separator_raises(cuda, M):
+    A = _device_spd(cuda, M)
+    dk.reset_launches()
+    L = dk.chol_batched(A)
+    ref = dk.chol_batched_plain(A)
+    torch.cuda.synchronize()
+    assert dk.launches["chol_batched"] == 1
+    assert bool(torch.isfinite(L).all()) and not bool(torch.triu(L, 1).any())
+    assert float((L - ref).abs().max() / ref.abs().max()) < 1e-10
+
+
+# the form the plan takes at the paths' shapes: resident part frames, the
+# sphere's streamed (40, 320) frames, every separator in the large form
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,K,M,form", [
+    (torch.float32, 55, 192, "resident"), (torch.float64, 55, 192, "resident"),
+    (torch.float32, 40, 320, "streaming"), (torch.float64, 17, 320, "streaming"),
+    (torch.float32, 1, 488, "large"), (torch.float64, 1, 1472, "large"),
+    (torch.float32, 1, 3952, "large"), (torch.float64, 1, 3952, "large")])
+def test_cuda_chol_forms_at_the_path_shapes(cuda, dtype, K, M, form):
+    assert dk.chol_form(dtype, K, M) == form
 
 
 def _check_trsm(bwd, L, B):

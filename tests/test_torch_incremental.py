@@ -162,8 +162,8 @@ def test_build_system_hooks_match_jax(graph):
 
 
 def test_unported_record_kinds_name_their_item():
-    rec = parser.ParsedRecord("edge_p2c", (0, 1), np.zeros(2), np.eye(2))
-    with pytest.raises(ValueError, match=r"'edge_p2c'.*queue 1 item 6"):
+    rec = parser.ParsedRecord("edge_rocv_range", (0, 1), np.zeros(1), np.eye(1))
+    with pytest.raises(ValueError, match=r"'edge_rocv_range'.*queue 1 item 10"):
         parser.build_system([rec])
 
 
@@ -414,11 +414,14 @@ def test_port_reads_no_slampp_environment():
 
 
 def test_dogleg_auto_refuses_large_landmark_graphs():
-    """DoglegSolver("auto") takes the JAX package's sparse Schur engine on
-    a landmark graph of 1500 vertices or more; that engine is not ported,
-    so the port raises there instead of solving densely."""
+    """DoglegSolver("auto") takes the sparse Schur engine on a landmark
+    graph of 1500 vertices or more, as the JAX package does (it used to
+    refuse there while that engine was not ported); below that it stays
+    dense."""
     text = make_city_trees(n_poses=1500, n_landmarks=60, seed=0)[0]
     system = parser.build_system(_parse(text)[0])
     assert system.n_vertices >= 1500
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        DoglegSolver(system, device="cpu").optimize()
+    assert DoglegSolver(system, device="cpu")._resolve_engine() == "schur_sparse"
+    small = parser.build_system(_parse(make_city_trees(n_poses=300, n_landmarks=60,
+                                                       seed=0)[0])[0])
+    assert DoglegSolver(small, device="cpu")._resolve_engine() == "dense"

@@ -1,7 +1,7 @@
 """The batch solvers of slampp_tpu_torch against the JAX package: Gauss-Newton
 on the native and dense engines, Levenberg-Marquardt and dogleg on the dense
 and partitioned (v3) engines, the partitioned solver's prior step, the
-gated update and the LM damping scale, and the routes that are not ported.
+gated update and the LM damping scale, and the Schur routes.
 Float64 paths agree with the JAX package to 1e-8 (states, chi2) and take the
 same accept / reject decisions; mixed-precision paths are held to the bounds
 of tests/test_partitioned.py.  On the CPU every dense kernel call takes its
@@ -223,21 +223,33 @@ def test_gn_step_prior_matches_jax_and_dense(mixed, monkeypatch):
                                    atol=5e-5 if mixed else 1e-6)
 
 
-@pytest.mark.parametrize("make", [
-    lambda s: GaussNewtonSolver(s, use_schur=True, device="cpu"),
-    lambda s: GaussNewtonSolver(s, linear_solver="schur", device="cpu"),
-    lambda s: GaussNewtonSolver(s, linear_solver="schur_sparse", device="cpu"),
-    lambda s: LevenbergMarquardtSolver(s, use_schur=True, device="cpu"),
-    lambda s: LevenbergMarquardtSolver(s, engine="schur_sparse", device="cpu"),
-    lambda s: LevenbergMarquardtSolver(s, engine="big_ba", device="cpu"),
-    lambda s: DoglegSolver(s, engine="schur_sparse", device="cpu"),
+@pytest.mark.parametrize("make,graph,engine", [
+    (lambda s: GaussNewtonSolver(s, use_schur=True, device="cpu"), "city", "_schur_plan"),
+    (lambda s: GaussNewtonSolver(s, linear_solver="schur", device="cpu"), "city", "_schur_plan"),
+    (lambda s: GaussNewtonSolver(s, linear_solver="schur_sparse", device="cpu"), "city",
+     "_sparse_schur"),
+    (lambda s: LevenbergMarquardtSolver(s, use_schur=True, device="cpu"), "city", "_schur_plan"),
+    (lambda s: LevenbergMarquardtSolver(s, engine="schur_sparse", device="cpu"), "city", "_ss"),
+    (lambda s: LevenbergMarquardtSolver(s, engine="big_ba", device="cpu"), "ba", "_big"),
+    (lambda s: DoglegSolver(s, engine="schur_sparse", device="cpu"), "city", "_ss"),
 ], ids=["gn-use_schur", "gn-schur", "gn-schur_sparse", "lm-use_schur", "lm-schur_sparse",
         "lm-big_ba", "dl-schur_sparse"])
-def test_schur_routes_not_ported_raise(make):
-    """The Schur engines are not ported: each route raises and names its
-    ROADMAP item, instead of running another engine."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        make(port_system(20))
+def test_schur_routes_not_ported_raise(make, graph, engine):
+    """Every Schur route used to raise while the Schur engines were not
+    ported; each now runs through its own engine (the dense Schur or the
+    sparse Schur engine on a city-trees graph, BigBASolver on a BA scene)
+    and lowers chi2.  Parity
+    with the JAX package: tests/test_torch_ba.py, test_torch_schur_sparse.py
+    and test_torch_ba_schur.py."""
+    from tests._torch_jax_util import ba_scene_text, city_text, port_text_system
+
+    system = {"city": lambda: port_text_system(city_text(60, 20)),
+              "ba": lambda: port_text_system(ba_scene_text(6, 60))}[graph]()
+    solver = make(system)
+    chi0 = solver.chi2()
+    solver.optimize(2)
+    assert getattr(solver, engine) is not None
+    assert solver.chi2() < chi0
 
 
 @pytest.mark.parametrize("cls", [GaussNewtonSolver, LevenbergMarquardtSolver, DoglegSolver])

@@ -60,6 +60,6 @@ def test_chi2_dense_system_and_update_match_jax():
 
 
 def test_build_system_rejects_unported_record_kind():
-    rec = ParsedRecord("edge_p2c", (0, 1), np.zeros(2), np.eye(2))
-    with pytest.raises(ValueError, match=r"'edge_p2c'.*queue 1 item 6"):
+    rec = ParsedRecord("edge_spheron_xyz", (0, 1), np.zeros(3), np.eye(3))
+    with pytest.raises(ValueError, match=r"'edge_spheron_xyz'.*queue 1 item 10"):
         build_system([rec])
