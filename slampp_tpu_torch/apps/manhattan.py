@@ -13,7 +13,7 @@ The batch solvers as the JAX package's CLI builds them for a pose graph
 (GN on the native v1 engine, LM and dogleg on the dense or v3 engine), one
 ``optimize`` with the CLI's defaults (5 iterations, min |dx| 0.01):
 
-    python -m slampp_tpu_torch.apps.manhattan [n_poses] [device] --solver lambda|lambda-lm|lambda-dl [--engine v3] [--profile]
+    python -m slampp_tpu_torch.apps.manhattan [n_poses] [device] --solver lambda|lambda-lm|lambda-dl|A|spcg [--engine v3] [--profile]
 
 prints ``run_solver``'s result, or with ``--profile`` ``profile_solver``'s.
 
@@ -183,7 +183,9 @@ def make_solver(system, nls: str, device, engine=None):
     graph (``slampp_tpu/apps/main.py:195-228``): ``lambda`` is
     GaussNewtonSolver (auto: the native v1 engine), ``lambda-lm``
     LevenbergMarquardtSolver (dense), ``lambda-dl`` DoglegSolver (auto:
-    dense); ``engine`` overrides the LM / dogleg engine ("v3")."""
+    dense), ``A`` ASolver (GN on the explicit Jacobian), ``spcg``
+    SPCGSolver (GN with spanning-tree-preconditioned CG); ``engine``
+    overrides the LM / dogleg engine ("v3")."""
     if nls == "lambda-lm":
         return LevenbergMarquardtSolver(system, use_schur=False, engine=engine or "dense",
                                         device=device)
@@ -193,7 +195,12 @@ def make_solver(system, nls: str, device, engine=None):
         if engine is not None:
             raise ValueError("the lambda solver takes no engine; it resolves its linear solver")
         return GaussNewtonSolver(system, use_schur=False, device=device)
-    raise ValueError(f"unknown solver {nls!r}")
+    if nls in ("A", "spcg") and engine is None:
+        from slampp_tpu_torch.linear.spcg import SPCGSolver
+        from slampp_tpu_torch.solvers.a_solver import ASolver
+
+        return (ASolver if nls == "A" else SPCGSolver)(system, device=device)
+    raise ValueError(f"unknown solver {nls!r}" + (f" with engine {engine!r}" if engine else ""))
 
 
 def run_solver(n_poses: int, device, nls: str, engine=None, max_iters: int = 5,
@@ -239,6 +246,9 @@ def run_solver(n_poses: int, device, nls: str, engine=None, max_iters: int = 5,
     }
     if robust is not None:
         out["robust"] = {"loss": robust[0], "on_chi2": robust[1], **_robust_weights(final)}
+    if hasattr(solver, "cg_counts"):  # SPCG: CG iterations per GN step, its CUDA graph
+        out["cg_counts"] = list(solver.cg_counts)
+        out["cg_graph"] = {"nodes": solver.graph_nodes, "capture_s": solver.capture_s}
     native = getattr(solver, "_native", None)
     if native is not None:
         out["levels"] = native.dplan.n_levels

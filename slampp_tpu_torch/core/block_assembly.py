@@ -22,7 +22,7 @@ partitioned solver's).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,13 +115,18 @@ def build_block_plan(
     inv_order: np.ndarray,
     block_of_vid: Dict[int, int],
     panel: int = 1,
+    edge_mask: Optional[Dict[str, np.ndarray]] = None,
 ) -> BlockPlan:
     """Host: the sorted-assembly plan for a panel slot table.
 
     ``slot_of`` maps PERMUTED panel pairs (i, j), i > j, to the off-diagonal
     slot; ``diag_slot[p]`` is the diagonal slot of permuted panel p;
     ``block_of_vid`` maps a vertex id to its original fine block and
-    ``inv_order`` an original fine block to its permuted fine position."""
+    ``inv_order`` an original fine block to its permuted fine position.
+    ``edge_mask`` (per edge type, a bool per edge) drops the masked-out
+    edges' contributions, as the JAX package routes them to its dummy slot:
+    a subgraph's system (the SPCG spanning tree, linear/spcg.py) assembles
+    from the same GraphArrays."""
     offsets, total = system._layout()
     dims = {get_vertex_type(t).dim for t, _ in system.vertex_index.values()}
     if len(dims) != 1:
@@ -149,7 +154,10 @@ def build_block_plan(
         fd_diag = np.full((E, arity), SENT, np.int64)
         fd_pair = np.full((E, len(pairs)), SENT, np.int64)
         fd_rhs = np.full((E, arity), NF, np.int64)
+        mask_t = edge_mask.get(tname) if edge_mask is not None else None
         for e, ev in enumerate(vids):
+            if mask_t is not None and not mask_t[e]:
+                continue  # every destination of a dropped edge stays dummy
             locs = [int(inv_order[block_of_vid[v]]) if v in block_of_vid else None
                     for v in ev]
             for s, p in enumerate(locs):

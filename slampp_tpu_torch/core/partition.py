@@ -171,17 +171,20 @@ def partition_graph(
     pairs: Sequence[Tuple[int, int]],
     target: int = 64,
     max_sep_frac: float = 0.45,
+    strict: bool = True,
 ) -> Partition:
     """Best-available partition with a quality gate: interval (optimal for
     trajectory-ordered chains), then BFS region growing (general graphs);
     raises ValueError when even the BFS separator exceeds ``max_sep_frac``
-    of the blocks (use the v2 level-scheduled engine instead)."""
+    of the blocks (use the v2 level-scheduled engine instead).  With
+    ``strict=False`` it returns that partition instead of raising (a caller
+    whose dense separator core takes any size)."""
     part = interval_partition(n, pairs, target=target)
     if n and len(part.separator) > max_sep_frac * n:
         part_b = bfs_partition(n, pairs, target=target)
         if len(part_b.separator) < len(part.separator):
             part = part_b
-    if n and len(part.separator) > max_sep_frac * n:
+    if strict and n and len(part.separator) > max_sep_frac * n:
         raise ValueError(
             f"separator has {len(part.separator)}/{n} blocks; "
             "graph is not chain-like — use engine='v2'"

@@ -214,14 +214,20 @@ class GraphSystem:
             states[t] = torch.as_tensor(arr, dtype=F64, device=device)
             vertex_offsets[t] = torch.as_tensor(offs, device=device)
 
+        # vertex id -> (local index, scalar offset), looked up per edge slot
+        ids = np.fromiter(self.vertex_index, np.int64, len(self.vertex_index))
+        id_order = np.argsort(ids)
+        ids_sorted = ids[id_order]
+        local_of = np.fromiter((i for _, i in self.vertex_index.values()), np.int64,
+                               len(ids))[id_order]
+        off_of = np.fromiter((offsets.get(v, dummy) for v in self.vertex_index), np.int64,
+                             len(ids))[id_order]
         edges: Dict[str, EdgeArrays] = {}
         for t in self.edge_type_names:
             rec = self._edges[t]
             vids = np.asarray(rec["vids"], np.int64)
-            local = np.array([[self.vertex_index[v][1] for v in row] for row in rec["vids"]],
-                             np.int64).reshape(vids.shape)
-            offs = np.array([[offsets.get(v, dummy) for v in row] for row in rec["vids"]],
-                            np.int64).reshape(vids.shape)
+            pos = np.searchsorted(ids_sorted, vids)
+            local, offs = local_of[pos], off_of[pos]
             edges[t] = EdgeArrays(
                 torch.as_tensor(local, device=device),
                 torch.as_tensor(offs, device=device),

@@ -16,14 +16,21 @@ Conventions as in the JAX package: ``error_fn`` is the residual
 * ``EdgeType.robust_weight_fn(r (E, res_dim), sigma_inv (E, res_dim, res_dim)) -> (E,)``
   the IRLS weight that multiplies ``sigma_inv`` in assembly (models/robust.py).
 
-The port has no autodiff path (the JAX package used ``jax.jacfwd``), so an
-edge type must bring its analytic ``jacobian_fn``.
+The JAX package differentiated each ``error_fn`` through the retractions
+with ``jax.jacfwd`` (``slampp_tpu/core/assembly.py:32-48``).  Here every
+edge type brings its ``jacobian_fn``: the SE(2), SE(3), BA, ROCV and
+Spheron types and the Sim(3) G reprojection edges (the full-width Sim(3)
+path) have analytic ones; the other Sim(3) edges (LS, LO, the pose edges
+and the angle-error variants) take :func:`autodiff_jacobian`, the same
+construction as the JAX package's on ``torch.func``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,3 +86,25 @@ def get_vertex_type(name: str) -> VertexType:
 
 def get_edge_type(name: str) -> EdgeType:
     return TYPE_REGISTRY["edge"][name]
+
+
+def autodiff_jacobian(error_fn: Callable, vertex_types: tuple) -> Callable:
+    """A ``jacobian_fn`` by forward-mode autodiff: per edge, ``jacfwd`` of
+    ``error_fn(retract(x_k, d_k), ...)`` at d = 0, vmapped over the edges
+    (``torch.func``; the JAX package's ``jax.jacfwd`` of the same
+    function).  ``error_fn`` and the retractions must accept unbatched
+    (state_dim,) inputs and branch only through ``torch.where``."""
+
+    def jacobian_fn(states, meas):
+        vts = tuple(get_vertex_type(n) for n in vertex_types)
+
+        def one(xs, z):
+            def err(*deltas):
+                return error_fn(tuple(vt.retract(x, d) for vt, x, d in zip(vts, xs, deltas)), z)
+
+            zeros = tuple(x.new_zeros(vt.dim) for vt, x in zip(vts, xs))
+            return torch.func.jacfwd(err, argnums=tuple(range(len(vts))))(*zeros)
+
+        return error_fn(states, meas), torch.func.vmap(one)(tuple(states), meas)
+
+    return jacobian_fn

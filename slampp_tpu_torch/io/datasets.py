@@ -4,9 +4,10 @@
 and landmarks), ``make_sphere`` (SE(3) pose graph),
 ``make_sphere_landmarks`` (SE(3) poses and XYZ landmarks), ``make_ba_scene``
 and ``make_ba_scene_incremental`` (bundle adjustment: cameras on a ring, a
-point cloud) are NumPy copies of the JAX package's generators: for the same
-arguments they emit byte-identical g2o text, so both packages optimize the
-same graph.  ``make_venice_ba_arrays`` (venice871-class BA) returns the
+point cloud), ``make_rocv`` (range-only constant velocity) and
+``make_spheron`` (spherical cameras observing XYZ landmarks) are NumPy
+copies of the JAX package's generators: for the same arguments they emit
+byte-identical g2o text, so both packages optimize the same graph.  ``make_venice_ba_arrays`` (venice871-class BA) returns the
 same arrays as the JAX package's.
 ``sphere_text`` is the sphere graph the port's apps run, at one ring per
 50 poses unless told otherwise.
@@ -473,6 +474,80 @@ def make_venice_ba_arrays(
 
     lm_init = pts + rng.normal(0, point_init_noise, (len(pts), 3))
     return cam_states, lm_init, obs_cam.astype(np.int64), obs_lm.astype(np.int64), uv, info, pts
+
+
+def make_rocv(n_steps: int = 30, n_transmitters: int = 4, seed: int = 0):
+    """Synthetic range-only constant-velocity dataset (ROCV problem,
+    reference ROCV_Types.h / ParsePrimitives.h:1425-1700): a receiver on a
+    constant-velocity track ranging against fixed transmitters with absolute
+    position priors."""
+    rng = np.random.default_rng(seed)
+    tx = rng.normal(0, 10, (n_transmitters, 3))
+    lines = []
+    # incremental vertex ids (the reference parser contract): transmitters
+    # 0..T-1, receivers T+k
+    for t_ in range(n_transmitters):
+        lines.append(
+            "ROCV:TRANSMITTER %d %.6f %.6f %.6f"
+            % (t_, *(tx[t_] + rng.normal(0, 0.1, 3)))
+        )
+        lines.append("ROCV:TRANSMITTER_UF %d 1 0 0 1 0 1" % (t_,))
+    pos = np.zeros(3)
+    vel = np.array([1.0, 0.5, 0.0])
+    info21 = [100, 0, 0, 0, 0, 0, 100, 0, 0, 0, 0, 100, 0, 0, 0, 100, 0, 0, 100, 0, 100]
+    T = n_transmitters
+    for k in range(n_steps):
+        p = pos + vel * k
+        lines.append(
+            "ROCV:RECEIVER %d %.6f %.6f %.6f %.6f %.6f %.6f"
+            % (T + k, *(p + rng.normal(0, 0.05, 3)), *vel)
+        )
+        if k > 0:
+            lines.append(
+                "ROCV:DELTA_TIME %d %d 1.0 %s"
+                % (T + k - 1, T + k, " ".join(map(str, info21)))
+            )
+        for t_ in range(n_transmitters):
+            r = np.linalg.norm(p - tx[t_]) + rng.normal(0, 0.02)
+            lines.append("ROCV:RANGE %d %d %.6f 2500" % (T + k, t_, r))
+    return "\n".join(lines) + "\n", tx
+
+
+def make_spheron(n_poses: int = 8, n_points: int = 40, seed: int = 0):
+    """Synthetic spherical-camera (Spheron) dataset: poses on a circle
+    observing XYZ landmarks in their local frame
+    (CEdgeSpheronXYZ, BA_Types.h:996)."""
+    rng = np.random.default_rng(seed)
+
+    def aa_to_R(aa):
+        th = np.linalg.norm(aa)
+        if th < 1e-12:
+            return np.eye(3)
+        k = aa / th
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+
+    lines = []
+    poses = []
+    for k in range(n_poses):
+        a = 2 * np.pi * k / n_poses
+        t = np.array([3 * np.cos(a), 3 * np.sin(a), 0.0])
+        aa = np.array([0.0, 0.0, a])
+        poses.append((t, aa))
+        lines.append(
+            "VERTEX_SPHERON:QUAT %d %.6f %.6f %.6f 0 0 %.9f %.9f"
+            % (k, *t, np.sin(a / 2), np.cos(a / 2))
+        )
+    pts = rng.normal(0, 2.0, (n_points, 3))
+    for pi, p in enumerate(pts):
+        for k in range(n_poses):
+            t, aa = poses[k]
+            local = aa_to_R(aa).T @ (p - t) + rng.normal(0, 0.01, 3)
+            lines.append(
+                "EDGE_SPHERON_XYZ %d %d %.6f %.6f %.6f 100 0 0 100 0 100"
+                % (k, n_poses + pi, *local)
+            )
+    return "\n".join(lines) + "\n", pts
 
 
 def default_rings(n_poses: int) -> int:

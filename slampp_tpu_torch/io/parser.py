@@ -3,11 +3,10 @@
 
 ``parse_tokens``, ``parse_file`` and ``detect_problem`` are NumPy copies of
 the JAX package's (token-alias table and storage conversions of
-ParsePrimitives.h); ``g2o_file`` hands generated g2o text to ``parse_file``.  The port's ``build_system`` takes the SE(2) records
-(odometry, XY and range-bearing landmark observations), the SE(3) records
-(odometry and XYZ landmark observations) and consistency markers, with the
-JAX package's incremental hooks; a record kind whose model is not ported
-yet raises ``ValueError`` naming its ROADMAP.md item.
+ParsePrimitives.h); ``g2o_file`` hands generated g2o text to ``parse_file``.
+The port's ``build_system`` takes every record kind the JAX package's
+does: SE(2), SE(3), BA, Spheron and ROCV records, phase delimiters and
+consistency markers, with the JAX package's incremental hooks.
 """
 
 from __future__ import annotations
@@ -288,15 +287,12 @@ def detect_problem(records: Iterable[ParsedRecord]) -> str:
     return "se2"
 
 
-# record kinds whose models are not ported yet -> their ROADMAP.md queue 1 item
-_NOT_PORTED = dict.fromkeys(
-    ("vertex_spheron", "edge_spheron_xyz", "vertex_posvel", "vertex_rocv_lm",
-     "rocv_transmitter_uf", "edge_rocv_dt", "edge_rocv_range"),
-    "item 10 (Sim(3), ROCV and Spheron)")
-
-# BA vertex record kind -> vertex type (the dataset's own states)
+# vertex record kind -> vertex type (the dataset's own states): BA, the
+# spheron poses, the ROCV receivers and transmitters (landmark3d-typed: the
+# ROCV edges couple posvel3d and landmark3d)
 _VERTICES = {"vertex_xyz": "xyz", "vertex_cam": "cam", "vertex_scam": "scam",
-             "vertex_intrinsics": "intrinsics"}
+             "vertex_intrinsics": "intrinsics", "vertex_spheron": "spheron",
+             "vertex_posvel": "posvel3d", "vertex_rocv_lm": "landmark3d"}
 
 # pose-graph record kind -> (model module, edge type, initializers attribute)
 _EDGES = {
@@ -308,6 +304,9 @@ _EDGES = {
     "edge_p2c": ("ba", "edge_p2c", None),
     "edge_p2ci": ("ba", "edge_p2ci", None),
     "edge_p2sc": ("ba", "edge_p2sc", None),
+    "edge_spheron_xyz": ("rocv", "edge_spheron_xyz", "SPHERON_XYZ_INITIALIZERS"),
+    "edge_rocv_dt": ("rocv", "edge_rocv_const_vel", "ROCV_CONST_VEL_INITIALIZERS"),
+    "edge_rocv_range": ("rocv", "edge_rocv_range", "ROCV_RANGE_INITIALIZERS"),
 }
 
 
@@ -329,13 +328,14 @@ def build_system(
     Pose-graph problems ignore VERTEX ground-truth lines
     (CIgnoreAllVertexTraits, Solve2DImpl.cpp:50) and initialize vertices by
     composing measurements; BA vertex lines (VERTEX_XYZ, VERTEX_CAM,
-    VERTEX_SCAM, VERTEX_INTRINSICS) carry the states the edges start from.
-    A record whose model is not ported raises ``ValueError`` naming its
-    ROADMAP.md item.  Returns the populated system."""
+    VERTEX_SCAM, VERTEX_INTRINSICS), spheron poses and the ROCV receivers
+    and transmitters carry the states the edges start from; a
+    ROCV:TRANSMITTER_UF record adds a landmark prior at the transmitter's
+    parse-time position.  Returns the populated system."""
     from slampp_tpu_torch.graph.system import GraphSystem
-    from slampp_tpu_torch.models import ba, se2, se3
+    from slampp_tpu_torch.models import ba, rocv, se2, se3
 
-    models = {"se2": se2, "se3": se3, "ba": ba}
+    models = {"se2": se2, "se3": se3, "ba": ba, "rocv": rocv}
     del problem
     if system is None:
         system = GraphSystem()
@@ -352,10 +352,15 @@ def build_system(
         if k in _VERTICES:
             system.add_vertex(_VERTICES[k], rec.ids[0], rec.values)
             continue
+        if k == "rocv_transmitter_uf":
+            # absolute position prior at the landmark's parse-time state
+            z = system.vertex_state(rec.ids[0])[:3]
+            system.add_edge("edge_landmark3d_prior", rec.ids, z, rec.info)
+            if on_edge is not None:
+                on_edge(system, system.n_edges)
+            continue
         if k not in _EDGES:
-            item = _NOT_PORTED.get(k)
-            raise ValueError(f"unhandled record kind {k!r}" + (
-                f": its model is not ported yet (ROADMAP.md queue 1 {item})" if item else ""))
+            raise ValueError(f"unhandled record kind {k!r}")
         model, etype, inits = _EDGES[k]
         system.add_edge(etype, rec.ids, rec.values, rec.info,
                         getattr(models[model], inits) if inits else None)

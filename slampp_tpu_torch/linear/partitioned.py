@@ -317,7 +317,7 @@ class PartitionedSolver:
 
 
 def build_v3_geometry(n, pairs, bs: int, target: int = 64, max_sep_frac: float = 0.45,
-                      forced_separator=None, extras: dict = None):
+                      forced_separator=None, extras: dict = None, strict: bool = True):
     """Host: the partitioned-solver geometry for ``n`` blocks of size ``bs``
     with off-diagonal pattern ``pairs`` (original block indices).
 
@@ -327,14 +327,16 @@ def build_v3_geometry(n, pairs, bs: int, target: int = 64, max_sep_frac: float =
     The plan's tensors are on the CPU (``V3Plan.to`` moves them).
 
     ``forced_separator``: block ids that must land in the separator;
-    ``extras``, when given, receives {"separator": sorted block ids}."""
+    ``extras``, when given, receives {"separator": sorted block ids};
+    ``strict=False`` takes a separator beyond ``max_sep_frac`` rather than
+    raising (``partition.partition_graph``; not with a forced separator)."""
     def _do_partition(forced):
         if forced:
             return part_mod.partition_graph_forced(
                 n, sorted(pairs), sorted(forced), target=target,
                 max_sep_frac=max_sep_frac)
         return part_mod.partition_graph(n, sorted(pairs), target=target,
-                                        max_sep_frac=max_sep_frac)
+                                        max_sep_frac=max_sep_frac, strict=strict)
 
     forced0 = set(forced_separator or [])
     forced_set = set(forced0)

@@ -38,6 +38,7 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from slampp_tpu_torch.core import assembly
 from slampp_tpu_torch.graph.system import GraphArrays, GraphSystem
@@ -64,15 +65,16 @@ class SparseSchurPlan(NamedTuple):
     # per fine slot hit), of the rhs contributions (one per pose block) and
     # of the landmark-sorted pose-landmark edges (one per landmark); each
     # grouped plan's rows hold the contributions' own indices
-    src_grp: GroupedSegments
+    src_grp: GroupedSegments  # rows index [head contributions | kept pairs]
     slot_inv: torch.Tensor  # (nnzb,) -> hit index, or n_hit (zero)
-    src_tflag: torch.Tensor  # (n_src,) 1.0 where the contribution is transposed
+    hij_tflag: torch.Tensor  # (n_pp,) bool: the pose-pose H_ij block lands transposed
     rsrc_grp: GroupedSegments
     lm_grp: GroupedSegments
     pl_lm: torch.Tensor  # (n_pl,) landmark of each (sorted) pose-landmark edge
     pl_pose: torch.Tensor  # (n_pl,) pose block of each (sorted) edge (0 for none)
-    # pairs of pose-landmark edges sharing a landmark
-    pair_e: torch.Tensor  # (n_pairs,)
+    # the kept pairs of pose-landmark edges sharing a landmark: those whose
+    # correction lands in the lower triangle
+    pair_e: torch.Tensor  # (n_kept,)
     pair_f: torch.Tensor
     # solution scatter
     pose_dx_offsets: torch.Tensor  # (n_p, bs) global scalar offsets (dummy = state_dim)
@@ -193,60 +195,61 @@ class SparseSchurSolver:
         pair_e = base + within // deg_r
         pair_f = base + within % deg_r
 
-        # SC fill pattern in original pose-block ids
+        # SC fill pattern in original pose-block ids, as sorted (hi, lo) keys
         pe_pose = pl_pose_s[pair_e]
         pf_pose = pl_pose_s[pair_f]
         valid_pair = (pe_pose >= 0) & (pf_pose >= 0)
-        pattern = set()
-        for a, b in zip(pp_i, pp_j):
-            if a != b:
-                pattern.add((max(a, b), min(a, b)))
         hi = np.maximum(pe_pose, pf_pose)
         lo = np.minimum(pe_pose, pf_pose)
         offd = valid_pair & (hi != lo)
-        pattern.update({(int(a), int(b)) for a, b in zip(hi[offd], lo[offd])})
+        pp_hi, pp_lo = np.maximum(pp_i, pp_j), np.minimum(pp_i, pp_j)
+        pp_off = pp_hi != pp_lo
+        keys = np.unique(np.concatenate([pp_hi[pp_off] * n_p + pp_lo[pp_off],
+                                         hi[offd] * n_p + lo[offd]]))
+        pattern = list(zip((keys // n_p).tolist(), (keys % n_p).tolist()))
 
         # a generous separator gate: landmark coupling makes pose graphs
         # less chain-like than pure odometry, and the dense SC core takes
-        # any size
-        plan_v3, slot_of, inv = v3.build_v3_geometry(n_p, sorted(pattern), bs, self.target,
-                                                     max_sep_frac=0.85)
+        # any size.  Beyond the gate the JAX package raises (the venice871
+        # class reduced camera system: 763 of 871 blocks); the port takes
+        # the partition as it is
+        plan_v3, slot_of, inv = v3.build_v3_geometry(n_p, pattern, bs, self.target,
+                                                     max_sep_frac=0.85, strict=False)
         self.v3_plan = plan_v3.to(self.device)
         nnzb = plan_v3.nnzb
+        inv = np.asarray(inv, np.int64)
 
-        def slot_and_flag(i, j):
-            """Fine slot and transpose flag of the contribution with row
-            block i, column block j (original ids)."""
-            pi, pj = int(inv[i]), int(inv[j])
-            if pi >= pj:
-                return slot_of[(pi, pj)], 0.0
-            return slot_of[(pj, pi)], 1.0
+        # fine slot of permuted blocks (i, j), i >= j, by sorted-key lookup
+        skey = np.fromiter((i * n_p + j for i, j in slot_of), np.int64, len(slot_of))
+        sval = np.fromiter(slot_of.values(), np.int64, len(slot_of))
+        sord = np.argsort(skey)
+        skey, sval = skey[sord], sval[sord]
+
+        def slots(i, j):
+            return sval[np.searchsorted(skey, i * n_p + j)]
 
         # contribution -> slot routing, in the device's concatenation order:
-        #   [pp Hii | pp Hjj | pp Hij | pl Hpp | pair corrections]
+        #   [pp Hii | pp Hjj | pp Hij | pl Hpp | pair corrections]; a unary
+        # pose edge drops its duplicate and its off-diagonal; an H_ij whose
+        # row block comes first in the permuted order lands transposed (tflag)
+        ip, jp = inv[pp_i], inv[pp_j]
+        unary = pp_i == pp_j
         dest = np.empty(3 * n_pp + n_pl + M2, np.int64)
         tflag = np.zeros(3 * n_pp + n_pl + M2)
-        for k in range(n_pp):
-            dest[k] = slot_of[(int(inv[pp_i[k]]), int(inv[pp_i[k]]))]
-            dest[n_pp + k] = slot_of[(int(inv[pp_j[k]]), int(inv[pp_j[k]]))]
-            if pp_i[k] == pp_j[k]:  # a unary pose edge: drop the duplicate and the offd
-                dest[n_pp + k] = nnzb + 1
-                dest[2 * n_pp + k] = nnzb + 1
-            else:
-                s, f = slot_and_flag(int(pp_i[k]), int(pp_j[k]))
-                dest[2 * n_pp + k] = s
-                tflag[2 * n_pp + k] = f
-        for k in range(n_pl):
-            p = pl_pose_s[k]
-            dest[3 * n_pp + k] = slot_of[(int(inv[p]), int(inv[p]))] if p >= 0 else nnzb + 1
+        dest[:n_pp] = slots(ip, ip)
+        dest[n_pp:2 * n_pp] = np.where(unary, nnzb + 1, slots(jp, jp))
+        dest[2 * n_pp:3 * n_pp] = np.where(unary, nnzb + 1,
+                                           slots(np.maximum(ip, jp), np.minimum(ip, jp)))
+        tflag[2 * n_pp:3 * n_pp] = (~unary & (ip < jp)).astype(np.float64)
+        ipl = inv[np.maximum(pl_pose_s, 0)]
+        dest[3 * n_pp:3 * n_pp + n_pl] = np.where(pl_pose_s >= 0, slots(ipl, ipl), nnzb + 1)
         # pair corrections: the ordered pairs that map to the lower triangle
         pair_off = 3 * n_pp + n_pl
         rk_e = np.where(pe_pose >= 0, inv[np.maximum(pe_pose, 0)], -1)
         rk_f = np.where(pf_pose >= 0, inv[np.maximum(pf_pose, 0)], -1)
         keep = valid_pair & (rk_e >= rk_f)
         pdest = np.full(M2, nnzb + 1, np.int64)
-        for t in np.flatnonzero(keep):
-            pdest[t] = slot_of[(int(rk_e[t]), int(rk_f[t]))]
+        pdest[keep] = slots(rk_e[keep], rk_f[keep])
         dest[pair_off:] = pdest
 
         src_perm = np.argsort(dest, kind="stable")
@@ -307,21 +310,31 @@ class SparseSchurSolver:
         # them to JAX's); the device sums through grouped plans made of them
         self.tables = {"src_perm": src_perm, "src_starts": starts, "src_ends": ends,
                        "rsrc_perm": rsrc_perm, "rsrc_starts": starts_r, "rsrc_ends": ends_r,
-                       "lm_starts": lm_starts, "lm_ends": lm_ends}
-        n_src, n_rsrc = len(dest), len(rdest)
+                       "lm_starts": lm_starts, "lm_ends": lm_ends, "src_tflag": tflag,
+                       "pair_e": pair_e, "pair_f": pair_f}
+        # the device forms only the kept pair corrections (the JAX package
+        # forms all M2 and routes the rest to its dummy slot): the same terms
+        # in the same order in every segment, at about half the memory; its
+        # contributions are indexed [head | kept pairs]
+        pair_keep = np.flatnonzero(keep)
+        n_src, n_used = len(dest), pair_off + len(pair_keep)
+        cidx = np.concatenate([np.arange(pair_off, dtype=np.int64),
+                               pair_off + np.cumsum(keep, dtype=np.int64) - 1, [n_used]])
+        src_grp = plan_grouped_segments(starts, ends, n_src,
+                                        remap=cidx[np.append(src_perm, n_src)])._replace(m=n_used)
+        n_rsrc = len(rdest)
         t = torch.from_numpy
         self.plan = SparseSchurPlan(
             n_p=n_p, n_l=n_l, bs=bs, dl=dl, anchor_kind=anchor_kind, anchor_idx=anchor_idx,
             anchor_dim=anchor_dim, anchor_info=float(system.unary_information),
             anchor_orig=anchor_orig,
-            src_grp=plan_grouped_segments(starts, ends, n_src,
-                                          remap=np.append(src_perm, n_src)),
-            slot_inv=t(slot_inv.astype(np.int64)), src_tflag=t(tflag),
+            src_grp=src_grp, slot_inv=t(slot_inv.astype(np.int64)),
+            hij_tflag=t(tflag[2 * n_pp:3 * n_pp] > 0),
             rsrc_grp=plan_grouped_segments(starts_r, ends_r, n_rsrc,
                                            remap=np.append(rsrc_perm, n_rsrc)),
             lm_grp=plan_grouped_segments(lm_starts, lm_ends, n_pl),
             pl_lm=t(pl_lm_s), pl_pose=t(np.maximum(pl_pose_s, 0)),
-            pair_e=t(pair_e), pair_f=t(pair_f),
+            pair_e=t(pair_e[pair_keep]), pair_f=t(pair_f[pair_keep]),
             pose_dx_offsets=t(pose_off), lm_dx_offsets=t(lm_off),
             pp_ei=t(pp_i), pp_ej=t(pp_j),
             inv_map=t(np.asarray(inv, np.int64)), lm_sort=t(lm_sort),
@@ -394,46 +407,51 @@ class SparseSchurSolver:
         bs, dl, n_p = p.bs, p.dl, p.n_p
         (Hii, Hjj, Hij, gi, gj, Hpp, gp, Dle, gle, B, chi2) = terms
 
-        D0 = grouped_segsum_first(Dle, p.lm_grp)  # (n_l, dl, dl) undamped
-        g_l = grouped_segsum_first(gle, p.lm_grp)  # (n_l, dl)
-        D = D0 + alpha * torch.eye(dl, dtype=D0.dtype, device=D0.device)
-        if p.anchor_kind == "landmark":
-            da = torch.arange(p.anchor_dim, device=D.device)
-            D[p.anchor_idx, da, da] += p.anchor_info
-        Dinv = inverse_spd_small(D)
+        with record_function("ss.landmarks"):
+            D0 = grouped_segsum_first(Dle, p.lm_grp)  # (n_l, dl, dl) undamped
+            g_l = grouped_segsum_first(gle, p.lm_grp)  # (n_l, dl)
+            D = D0 + alpha * torch.eye(dl, dtype=D0.dtype, device=D0.device)
+            if p.anchor_kind == "landmark":
+                da = torch.arange(p.anchor_dim, device=D.device)
+                D[p.anchor_idx, da, da] += p.anchor_info
+            Dinv = inverse_spd_small(D)
+            BD = torch.einsum("eij,ejk->eik", B, Dinv[p.pl_lm])  # (n_pl, bs, dl)
 
-        # pair corrections -B_e Dinv_lm B_f^T
-        BD = torch.einsum("eij,ejk->eik", B, Dinv[p.pl_lm])  # (n_pl, bs, dl)
-        pair_c = -torch.einsum("tik,tjk->tij", BD[p.pair_e], B[p.pair_f])
+        with record_function("ss.pairs"):  # pair corrections -B_e Dinv_lm B_f^T
+            pair_c = -torch.einsum("tik,tjk->tij", BD[p.pair_e], B[p.pair_f])
 
-        # fine-slot assembly: concatenated in routing order, transpose-flagged
-        contribs = torch.cat([Hii, Hjj, Hij, Hpp, pair_c], 0)
-        tf = p.src_tflag[:, None, None]
-        contribs = (1.0 - tf) * contribs + tf * contribs.transpose(1, 2)
-        red = grouped_segsum_first(contribs, p.src_grp)  # (n_hit, bs, bs)
-        redp = torch.cat([red, red.new_zeros(1, bs, bs)], 0)
-        vals = redp[p.slot_inv]  # (nnzb, bs, bs)
-        d = torch.arange(bs, device=vals.device)
-        vals[:n_p, d, d] += alpha
-        if p.anchor_kind == "pose":
-            da = torch.arange(p.anchor_dim, device=vals.device)
-            vals[p.anchor_idx, da, da] += p.anchor_info
+        with record_function("ss.assemble"):
+            # fine-slot assembly: concatenated in routing order, the pose-pose
+            # H_ij blocks transposed where flagged (no other term ever is)
+            Hij = torch.where(p.hij_tflag[:, None, None], Hij.transpose(1, 2), Hij)
+            contribs = torch.cat([Hii, Hjj, Hij, Hpp, pair_c], 0)
+            del pair_c
+            red = grouped_segsum_first(contribs, p.src_grp)  # (n_hit, bs, bs)
+            del contribs
+            redp = torch.cat([red, red.new_zeros(1, bs, bs)], 0)
+            vals = redp[p.slot_inv]  # (nnzb, bs, bs)
+            d = torch.arange(bs, device=vals.device)
+            vals[:n_p, d, d] += alpha
+            if p.anchor_kind == "pose":
+                da = torch.arange(p.anchor_dim, device=vals.device)
+                vals[p.anchor_idx, da, da] += p.anchor_info
 
-        # rhs: g_p - BD g_l per pose-landmark edge, in the permuted fine layout
-        r2 = torch.einsum("eik,ek->ei", BD, g_l[p.pl_lm])
-        rcontrib = torch.cat([gi, gj, gp, -r2], 0)
-        rhs = grouped_segsum_first(rcontrib, p.rsrc_grp)  # (n_p, bs)
+            # rhs: g_p - BD g_l per pose-landmark edge, in the permuted fine layout
+            r2 = torch.einsum("eik,ek->ei", BD, g_l[p.pl_lm])
+            rcontrib = torch.cat([gi, gj, gp, -r2], 0)
+            rhs = grouped_segsum_first(rcontrib, p.rsrc_grp)  # (n_p, bs)
 
         vals_p = torch.cat([vals, vals.new_zeros(1, bs, bs)], 0)
         rhs_p = torch.cat([rhs, rhs.new_zeros(1, bs)], 0)
         x_perm = v3._v3_solve_refined(v3p, vals_p, -rhs_p, self.refine_iters, self.damping_rel,
                                       self.mixed_precision)  # (n_p, bs) permuted
 
-        # landmark back-substitution: dx_l = Dinv (-g_l - B^T dx_pose)
-        x_pose = x_perm[p.inv_map]  # (n_p, bs) original order
-        bt = torch.einsum("eik,ei->ek", B, x_pose[p.pl_pose])  # (n_pl, dl)
-        BT = grouped_segsum_first(bt, p.lm_grp)
-        dx_l = torch.einsum("lij,lj->li", Dinv, -g_l - BT)
+        with record_function("ss.backsub"):
+            # landmark back-substitution: dx_l = Dinv (-g_l - B^T dx_pose)
+            x_pose = x_perm[p.inv_map]  # (n_p, bs) original order
+            bt = torch.einsum("eik,ei->ek", B, x_pose[p.pl_pose])  # (n_pl, dl)
+            BT = grouped_segsum_first(bt, p.lm_grp)
+            dx_l = torch.einsum("lij,lj->li", Dinv, -g_l - BT)
 
         total = graph.state_dim
         dx = x_pose.new_zeros(total + 1)
@@ -494,7 +512,8 @@ class SparseSchurSolver:
         """(new_states, denom, dx_norm, chi2): the PartitionedSolver
         contract, denom the LM gain ratio's dx . (alpha dx - g)."""
         self.ensure_symbolic()
-        terms = self._edge_terms(graph)
+        with record_function("ss.edge_terms"):
+            terms = self._edge_terms(graph)
         dx, gvec, chi2, _ = self._solve_from_terms(graph, terms, alpha)
         denom = torch.dot(dx, alpha * dx - gvec)
         return assembly.apply_update(graph, dx), denom, torch.linalg.norm(dx), chi2

@@ -110,6 +110,153 @@ def jax_venice_reference(n_cams=871, n_points=110_000, mean_track=10, sc_f64=Fal
             "seconds": time.perf_counter() - t0}
 
 
+def jax_sim3_venice(n_cams=871, n_points=110_000, mean_track=10, iters=5, mixed=True):
+    """apps/sim3.run_sim3_venice's procedure in the JAX package on the CPU:
+    the seed-0 venice-class scene as a cam / xyz GraphSystem (cameras
+    first, then points, one edge_p2c per observation), embedded in Sim(3),
+    LM with ``use_schur`` (the sparse Schur engine; ``mixed=False`` its
+    float64 mode), ``iters`` iterations with min_dx_norm 0."""
+    import time
+
+    from slampp_tpu.graph.system import GraphSystem
+    from slampp_tpu.io.datasets import make_venice_ba_arrays
+    from slampp_tpu.linear.schur_sparse import SparseSchurSolver
+    from slampp_tpu.models.sim3 import embed_ba_system_sim3
+    from slampp_tpu.solvers.lm import LevenbergMarquardtSolver
+
+    t0 = time.perf_counter()
+    cams, lms, oc, ol, uv, info, _ = make_venice_ba_arrays(
+        n_cams=n_cams, n_points=n_points, mean_track=mean_track, seed=0)
+    ba = GraphSystem()
+    n_c = len(cams)
+    for c in range(n_c):
+        ba.add_vertex("cam", c, cams[c])
+    for p in range(len(lms)):
+        ba.add_vertex("xyz", n_c + p, lms[p])
+    for e in range(len(oc)):
+        ba.add_edge("edge_p2c", (n_c + int(ol[e]), int(oc[e])), uv[e], info[e])
+    system = embed_ba_system_sim3(ba)
+    lm = LevenbergMarquardtSolver(system, use_schur=True)
+    engine = lm._resolve_engine()
+    out = {"n_cams": n_cams, "n_points": n_points, "mean_track": mean_track, "mixed": mixed,
+           "engine": engine, "n_obs": system.n_edges, "chi2_init": lm.chi2()}
+    try:
+        if engine == "schur_sparse":
+            lm._ss = SparseSchurSolver(system, mixed_precision=mixed)
+            lm._ss.ensure_symbolic()
+        applied = lm.optimize(iters, 0.0)
+    except ValueError as exc:  # the sparse Schur engine's separator gate
+        return {**out, "error": str(exc), "seconds": time.perf_counter() - t0}
+    return {**out, "chi2_final": lm.chi2(), "lm_accepted": applied,
+            "seconds": time.perf_counter() - t0}
+
+
+def jax_spcg(system, max_iters=5, min_dx=0.01):
+    """The JAX package's SPCGSolver.optimize, step by step through its
+    jitted step, which also returns each step's CG iteration count:
+    (chi2, applied, CG counts)."""
+    from slampp_tpu.linear.spcg import SPCGSolver
+
+    spcg = SPCGSolver(system)
+    spcg.ensure_symbolic()
+    step = spcg._step_fn()
+    graph = system.snapshot()
+    applied, counts = 0, []
+    for _ in range(max_iters):
+        new_states, dxn, _, k = step(graph)
+        counts.append(int(k))
+        if not np.isfinite(float(dxn)) or float(dxn) <= min_dx:
+            break
+        graph = graph.replace_states(new_states)
+        applied += 1
+    system.update_states(dict(graph.states))
+    return spcg.chi2(), applied, counts
+
+
+def _perturb_states(system, eps, seed):
+    """Scale every start state entry by 1 + eps N(0, 1), seeded."""
+    rng = np.random.default_rng(seed)
+    for lst in system._vstates.values():
+        for i, st in enumerate(lst):
+            lst[i] = np.asarray(st) * (1.0 + eps * rng.standard_normal(np.shape(st)))
+    return system
+
+
+def jax_sensitivity(seeds=3, eps=1e-15):
+    """How the JAX package's own results move when its start states are
+    scaled entry by entry by 1 + eps N(0, 1) (``seeds`` seeds): SPCG on
+    manhattan500 (chi2, CG counts; at manhattan3500 every step takes the
+    200-iteration cap) and dense GN on make_rocv(1000, 8)
+    (15 iterations, min_dx_norm 0: chi2 at each step's entry and after),
+    unperturbed and perturbed."""
+    from slampp_tpu.io.datasets import make_rocv
+    from slampp_tpu.solvers import gauss_newton as jgn
+
+    rocv_text = make_rocv(1000, 8, seed=0)[0]
+    orig_step = jgn._gn_step
+    out = {}
+    for seed in [None] + list(range(seeds)):
+        name = "jax" if seed is None else f"jax, seed {seed}"
+        system = jax_system(500)
+        if seed is not None:
+            _perturb_states(system, eps, seed)
+        chi2, applied, counts = jax_spcg(system)
+        out[f"spcg, {name}"] = {"chi2": chi2, "applied": applied, "cg_counts": counts}
+
+        system = jax_text_system(rocv_text)
+        if seed is not None:
+            _perturb_states(system, eps, seed)
+        seen = []
+
+        def step(*a, **k):
+            res = orig_step(*a, **k)
+            seen.append(float(res[2]))
+            return res
+
+        jgn._gn_step = step
+        try:
+            gn = jgn.GaussNewtonSolver(system, linear_solver="dense")
+            applied = gn.optimize(15, 0.0)
+        finally:
+            jgn._gn_step = orig_step
+        out[f"rocv, {name}"] = {"chi2_steps": seen, "chi2": gn.chi2(), "applied": applied}
+    return out
+
+
+def jax_sim3_references():
+    """chip_smoke.py's Sim(3), ROCV, Spheron and SPCG references on the CPU:
+    the venice871-class Sim(3) procedure at full size (the JAX package's
+    sparse Schur engine refuses its reduced camera system at the
+    separator gate: the error is recorded) and at 871 cameras and 30,000
+    points, which it takes (mixed, as the card runs it); its chi2 at the
+    start, before the engine's symbolic phase, at full size; ref_parity.py's
+    sim3_ba_10cam_200pts (dense LM, 20 iterations); make_rocv(1000, 8)
+    (dense GN, 15 iterations, min_dx_norm 0); make_spheron(64, 2000) (GN
+    with use_schur: the sparse Schur engine, mixed); SPCG on
+    manhattan3500."""
+    from slampp_tpu.io.datasets import make_rocv, make_spheron
+    from slampp_tpu.models.sim3 import embed_ba_system_sim3
+    from slampp_tpu.solvers.gauss_newton import GaussNewtonSolver
+    from slampp_tpu.solvers.lm import LevenbergMarquardtSolver
+
+    out = {"sim3-venice": jax_sim3_venice()}
+    out["sim3-venice-ref"] = jax_sim3_venice(871, 30_000, 10)
+    system = embed_ba_system_sim3(jax_text_system(ba_scene_text(10, 200, seed=5)))
+    lm = LevenbergMarquardtSolver(system)
+    applied = lm.optimize(20, 1e-6)
+    out["sim3-small"] = {"chi2": lm.chi2(), "applied": applied}
+    for phase, text, kw, it, mdx in (
+            ("rocv", make_rocv(1000, 8, seed=0)[0], {"linear_solver": "dense"}, 15, 0.0),
+            ("spheron", make_spheron(64, 2000, seed=0)[0], {"use_schur": True}, 5, 0.01)):
+        system = jax_text_system(text)
+        gn = GaussNewtonSolver(system, **kw)
+        applied = gn.optimize(it, mdx)
+        out[phase] = {"chi2": gn.chi2(), "applied": applied, "solver": gn._resolve_solver()}
+    chi2, applied, counts = jax_spcg(jax_system(3500))
+    out["spcg"] = {"chi2": chi2, "applied": applied, "cg_counts": counts}
+    return out
+
+
 def jax_ba_references():
     """chip_smoke.py's BA references, on the CPU: the venice871-class scene
     with a float32 SC (float32 pair products, the bench's setting) and a
@@ -720,6 +867,14 @@ if __name__ == "__main__":
     # SC, the dense Schur LM, cityTrees10k dogleg through the sparse Schur
     # engine, the Schur marginals):
     #   python tests/_torch_jax_util.py --ba
+    # and for its Sim(3), ROCV, Spheron and SPCG phases (the venice871-class
+    # Sim(3) scene at full size, where the JAX package's sparse Schur engine
+    # raises at its separator gate, and at 871 cameras / 30,000 points):
+    #   python tests/_torch_jax_util.py --sim3
+    # and how the JAX package's own SPCG CG counts at manhattan500 and its
+    # dense GN chi2 on make_rocv(1000, 8) move with its start states scaled
+    # by 1 + 1e-15 N(0, 1) (3 seeds; a few minutes):
+    #   python tests/_torch_jax_util.py --sensitivity
     # and the first step at which FastL's sphere500 runs in the two packages
     # part (their resident states copied after every step):
     #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --fastl-trace
@@ -740,6 +895,14 @@ if __name__ == "__main__":
     if "--mixed-sensitivity" in sys.argv:
         for run, (chi2, applied) in mixed_solver_sensitivity().items():
             print(json.dumps({"run": run, "chi2": chi2, "applied": applied}), flush=True)
+        sys.exit(0)
+    if "--sim3" in sys.argv:
+        for phase, ref in jax_sim3_references().items():
+            print(json.dumps({"phase": phase, **ref}), flush=True)
+        sys.exit(0)
+    if "--sensitivity" in sys.argv:
+        for run, ref in jax_sensitivity().items():
+            print(json.dumps({"run": run, **ref}), flush=True)
         sys.exit(0)
     if "--ba" in sys.argv:
         for phase, ref in jax_ba_references().items():

@@ -34,7 +34,7 @@ from slampp_tpu_torch.core import assembly
 from slampp_tpu_torch.graph.system import GraphSystem
 from slampp_tpu_torch.graph.types import get_edge_type, get_vertex_type
 from slampp_tpu_torch.io import parser
-from slampp_tpu_torch.io.datasets import make_city_trees, make_manhattan
+from slampp_tpu_torch.io.datasets import make_city_trees, make_manhattan, make_rocv
 from slampp_tpu_torch.linear.partitioned import PartitionedSolver
 from slampp_tpu_torch.linear.pcg import pcg_solve
 from slampp_tpu_torch.models import np_kernels as npk
@@ -162,9 +162,30 @@ def test_build_system_hooks_match_jax(graph):
 
 
 def test_unported_record_kinds_name_their_item():
-    rec = parser.ParsedRecord("edge_rocv_range", (0, 1), np.zeros(1), np.eye(1))
-    with pytest.raises(ValueError, match=r"'edge_rocv_range'.*queue 1 item 10"):
-        parser.build_system([rec])
+    """The ROCV record kinds, which the port refused until their model was
+    ported, now build what the JAX package's parse loop builds from the
+    same records: the same vertices (the receivers initialized from the
+    constant-velocity model, the transmitter's landmark prior), edges and
+    on_edge calls, and the same Hessian."""
+    text, _ = make_rocv(6, 2, seed=3)
+    with parser.g2o_file(text) as path:
+        recs, jrecs = parser.parse_file(path), jax_parser.parse_file(path)
+    assert {r.kind for r in recs} >= {"edge_rocv_range", "edge_rocv_dt", "rocv_transmitter_uf",
+                                      "vertex_posvel", "vertex_rocv_lm"}
+    assert parser.detect_problem(recs) == jax_parser.detect_problem(jrecs) == "rocv"
+    calls, jcalls = [], []
+    system = parser.build_system(recs, None, None,
+                                 lambda s, n: calls.append((n, s.n_vertices)))
+    jsystem = jax_parser.build_system(jrecs, None, None,
+                                      lambda s, n: jcalls.append((n, s.n_vertices)))
+    assert calls == jcalls
+    assert system._vorder == jsystem._vorder and system.edge_type_names == jsystem.edge_type_names
+    _states_close(system, jsystem, 0.0)
+    H, g, chi2 = assembly.assemble_dense(system.snapshot("cpu"))
+    Hj, gj, chi2_j = jax.jit(jax_asm.assemble_dense)(jsystem.snapshot())
+    np.testing.assert_allclose(H.numpy(), np.asarray(Hj), rtol=1e-12, atol=1e-8)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=1e-12, atol=1e-8)
+    assert abs(float(chi2) - float(chi2_j)) <= 1e-10 * float(chi2_j)
 
 
 # ----------------------------------------------------------------------- FastL

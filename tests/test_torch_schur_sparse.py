@@ -53,9 +53,23 @@ def test_plan_matches_jax(systems):
         assert getattr(p, f) == getattr(jp, f), f
     for f, v in ss.tables.items():
         np.testing.assert_array_equal(v, np.asarray(getattr(jp, f)), f)
-    for f in ("slot_inv", "src_tflag", "pl_lm", "pl_pose", "pair_e", "pair_f",
-              "pose_dx_offsets", "lm_dx_offsets", "pp_ei", "pp_ej"):
+    for f in ("slot_inv", "pl_lm", "pl_pose", "pose_dx_offsets", "lm_dx_offsets", "pp_ei",
+              "pp_ej"):
         np.testing.assert_array_equal(getattr(p, f).numpy(), np.asarray(getattr(jp, f)), f)
+    # the device forms only the pair corrections the JAX package keeps (the
+    # rest it routes to its dummy slot), and flags only the pose-pose H_ij
+    # blocks (no other contribution is transposed)
+    n_pp, n_pl = len(p.pp_ei), len(p.pl_lm)
+    dest = np.full(len(ss.tables["src_tflag"]), -1, np.int64)
+    kept = int(ss.tables["src_ends"][-1])
+    dest[ss.tables["src_perm"][:kept]] = 1
+    kept_pairs = np.flatnonzero(dest[3 * n_pp + n_pl:] == 1)
+    np.testing.assert_array_equal(p.pair_e.numpy(), ss.tables["pair_e"][kept_pairs])
+    np.testing.assert_array_equal(p.pair_f.numpy(), ss.tables["pair_f"][kept_pairs])
+    np.testing.assert_array_equal(p.hij_tflag.numpy(),
+                                  ss.tables["src_tflag"][2 * n_pp:3 * n_pp] > 0)
+    assert not ss.tables["src_tflag"][:2 * n_pp].any()
+    assert not ss.tables["src_tflag"][3 * n_pp:].any()
     np.testing.assert_array_equal(p.inv_map.numpy(), np.asarray(js._inv_map))
     np.testing.assert_array_equal(p.lm_sort.numpy(), np.asarray(js._lm_sort_dev))
     for f in ("K", "M", "S", "SB", "Ms", "nnzb"):

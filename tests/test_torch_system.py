@@ -2,12 +2,12 @@
 slampp_tpu_torch against the JAX package on the same Manhattan graph."""
 
 import numpy as np
-import pytest
 import torch
 
 import jax.numpy as jnp
 
 from slampp_tpu.core import assembly as jax_asm
+from slampp_tpu.io import parser as jax_parser
 from slampp_tpu.io.datasets import make_manhattan as jax_make_manhattan
 from slampp_tpu_torch.core import assembly
 from slampp_tpu_torch.io.datasets import make_manhattan
@@ -60,6 +60,23 @@ def test_chi2_dense_system_and_update_match_jax():
 
 
 def test_build_system_rejects_unported_record_kind():
-    rec = ParsedRecord("edge_spheron_xyz", (0, 1), np.zeros(3), np.eye(3))
-    with pytest.raises(ValueError, match=r"'edge_spheron_xyz'.*queue 1 item 10"):
-        build_system([rec])
+    """The Spheron record kinds, which the port refused until their model
+    was ported, now build what the JAX package's build_system builds from
+    the same records: the spheron pose from its vertex record, the landmark
+    initialized through the pose, the same states and assembled system."""
+    pose = np.array([0.5, -1.0, 0.2, 0.1, 0.3, -0.2])
+    recs = [ParsedRecord("vertex_spheron", (0,), pose),
+            ParsedRecord("edge_spheron_xyz", (0, 1), np.array([1.0, 2.0, 3.0]), 4.0 * np.eye(3)),
+            ParsedRecord("edge_spheron_xyz", (0, 2), np.array([-1.0, 0.5, 2.0]), np.eye(3))]
+    jrecs = [jax_parser.ParsedRecord(r.kind, r.ids, r.values, r.info) for r in recs]
+    system, jsystem = build_system(recs), jax_parser.build_system(jrecs)
+    assert system._vorder == jsystem._vorder and system.edge_type_names == jsystem.edge_type_names
+    for vid in jsystem._vorder:
+        np.testing.assert_allclose(system.vertex_state(vid), np.asarray(jsystem.vertex_state(vid)),
+                                   rtol=0, atol=1e-15)
+    g = system.snapshot("cpu")
+    H, gv, chi2 = assembly.assemble_dense(g)
+    Hj, gj, chi2_j = jax_asm.assemble_dense(jsystem.snapshot())
+    np.testing.assert_allclose(H.numpy(), np.asarray(Hj), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(gj), rtol=0, atol=1e-12)
+    assert abs(float(chi2) - float(chi2_j)) < 1e-12
