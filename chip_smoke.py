@@ -166,6 +166,23 @@ the run with a non-zero exit code and no result line:
   spcg        SPCGSolver on manhattan3500: chi2 within 1e-6 of the JAX
               package's, the same applied and CG iterations per step (each
               step takes the 200-iteration cap in both).
+  (after spcg: the slam_plus_plus CLI, apps/main.py, run in-process in a
+  temporary directory on g2o text written there, as a user runs it)
+  cli-gn      -i manhattan3500.g2o --json -dm -dsm -ns -nb (GN, the native
+              v1 engine): chi2 within 1e-6 of JAX_REF["gn"] with the same
+              iterations, system.mtx reads back to 10500 x 10500,
+              marginals.txt has 3500 finite positive rows;
+  cli-city    -i cityTrees10k.g2o -nls lambda-dl --json -ns -nb (dogleg
+              "auto": the sparse Schur engine): chi2 within 5e-3 of
+              JAX_REF["city-schur-sparse"] with the same iterations, all
+              three kernels launched at checked shapes;
+  cli-inc-ba  the CONSISTENCY_MARKER path (-nsp 1 -mnsi 2) on
+              make_ba_scene_incremental(6, 50, 4, seed=1): chi2 within 1e-6
+              of the JAX CLI's, the same iterations and markers;
+  regression  apps/regression.py's five goldens (scripts/regression_goldens
+              .json): md5 equal, chi2 within 1e-6;
+  examples    simple_example and ba_interface_example on the card: final
+              chi2 within 1e-6 of the JAX package's examples' printed values.
 Each phase's launches are counted from zero over that phase alone.  The
 whole script takes about ten minutes on an H100, the kernels' build
 included, and prints its seconds before the summary.  The kernel summary gives each kernel's times at the main path's
@@ -173,11 +190,18 @@ shape and, under "shapes", at every timed shape.
 
 Then the kernel summary (JSON), the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1-3 alone (the CLI's -rmb) and writes kernel_bench.csv (kernel,
+shape, dtype, device ms, library ms, bound ms of every timed case) into the
+working directory.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -294,7 +318,22 @@ JAX_REF = {
     "rocv": (54389.48382278988, 15),
     "spheron": (3788.3532351084714, 1),
     "spcg": {"chi2": 404.5038446353168, "applied": 5, "cg_counts": [200, 200, 200, 200, 200]},
+    # the CLI phases: cli-gn holds "gn" (the CLI's -nls lambda builds the
+    # same solver), cli-city "city-schur-sparse" (its -nls lambda-dl the same
+    # dogleg); the marker path's --json line from the JAX CLI, by
+    #   python tests/_torch_jax_util.py --cli
+    "cli-inc-ba": {"problem": "ba", "solver": "lambda-lm", "chi2": 224.8577282066047,
+                   "iterations": 0, "incremental_solves": 5},
+    # the final chi2 that examples/simple_example.py and
+    # examples/ba_interface_example.py print on the CPU
+    "examples": {"simple_example": 0.026236778263065454,
+                 "ba_interface_example": 737.1501359124949},
 }
+# the CLI phases: cli-gn and cli-inc-ba are float64 (TOL_SOLVER_F64),
+# cli-city the mixed sparse Schur engine (TOL_3500); the regression goldens
+# and the examples 1e-6
+TOL_CLI = {"cli-gn": 1e-6, "cli-city": 5e-3, "cli-inc-ba": 1e-6, "regression": 1e-6,
+           "examples": 1e-6}
 # the native phase: (run, engine, panel, as optimize_fused's CUDA graph)
 NATIVE_RUNS = (("v1-p8", "v1", 8, False), ("v2-p1", "v2", 1, False), ("v2-p1", "v2", 1, True),
                ("v2-p8", "v2", 8, False), ("v2-p8", "v2", 8, True))
@@ -602,13 +641,13 @@ def _check_kernels(dev):
         ("chol_batched", 1, 5344, None, (), both, both),
         ("trsm_lower_batched", 1, 5344, 8, (), both, both),
         ("trsm_lower_t_batched", 1, 5344, 8, (), both, both),
-        ("chol_batched", 12, 232, None, (), (f32,), ()),
-        ("trsm_lower_batched", 12, 232, 832, (), (f32,), ()),
-        ("trsm_lower_batched", 12, 232, 8, (), (f32,), ()),
-        ("trsm_lower_t_batched", 12, 232, 8, (), (f32,), ()),
-        ("chol_batched", 1, 4968, None, (), (f32,), ()),
-        ("trsm_lower_batched", 1, 4968, 8, (), (f32,), ()),
-        ("trsm_lower_t_batched", 1, 4968, 8, (), (f32,), ()),
+        ("chol_batched", 12, 232, None, (), (f32,), timed32),
+        ("trsm_lower_batched", 12, 232, 832, (), (f32,), timed32),
+        ("trsm_lower_batched", 12, 232, 8, (), (f32,), timed32),
+        ("trsm_lower_t_batched", 12, 232, 8, (), (f32,), timed32),
+        ("chol_batched", 1, 4968, None, (), (f32,), timed32),
+        ("trsm_lower_batched", 1, 4968, 8, (), (f32,), timed32),
+        ("trsm_lower_t_batched", 1, 4968, 8, (), (f32,), timed32),
         ("chol_batched", 1, 384, None, (), both, both),
         ("chol_batched", 1, 8, None, (), both, both),
         ("trsm_lower_batched", 1, 384, 8, (), both, both),
@@ -1102,6 +1141,148 @@ def _sim3_phases(dev) -> dict:
     return per_iter
 
 
+def _cli(argv, workdir):
+    """The port's CLI, ``main(argv)`` in-process in ``workdir``: (return
+    code, its stdout lines, the --json line)."""
+    import contextlib
+    import io
+
+    from slampp_tpu_torch.apps.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.chdir(workdir), contextlib.redirect_stdout(out):
+        rc = cli_main(list(argv))
+    lines = out.getvalue().splitlines()
+    return rc, lines, json.loads(lines[-1])
+
+
+def _cli_phases(dev) -> dict:
+    """The CLI phases, each in a temporary directory of its own with its g2o
+    text written there, launches counted from zero over the phase; returns
+    cli-city's launches per iteration."""
+    import tempfile
+
+    import numpy as np
+    import scipy.io
+
+    from slampp_tpu_torch.apps import regression
+    from slampp_tpu_torch.examples import ba_interface_example, simple_example
+    from slampp_tpu_torch.io import datasets
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def timings(res, lines):
+        return {"t_parse": res["t_parse"], "t_build": res["t_build"], "t_solve": res["t_solve"],
+                "phases": res["phases"], "printed": [ln for ln in lines if ln.startswith(
+                    ("done.", "denormalized", "system matrix"))]}
+
+    per_iter = {}
+    # cli-gn: batch GN (native v1) with the marginals and the matrix dump
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = os.path.join(d, "manhattan3500.g2o")
+        with open(path, "w") as f:
+            f.write(datasets.make_manhattan(n_poses=3500, loop_prob=0.1, seed=0)[0])
+        t_gen = time.perf_counter() - t0
+        dk.reset_launches()
+        rc, lines, res = _cli(["-i", path, "--json", "-dm", "-dsm", "-ns", "-nb"], d)
+        launches = dict(dk.launches)
+        expected, iters_ref = JAX_REF["gn"]
+        H = scipy.io.mmread(os.path.join(d, "system.mtx"))
+        marg = np.loadtxt(os.path.join(d, "marginals.txt"))
+        err = rel(res["chi2"], expected)
+        ok = (rc == 0 and err <= TOL_CLI["cli-gn"] and res["iterations"] == iters_ref
+              and res["solver"] == "lambda" and res["problem"] == "se2"
+              and H.shape == (10500, 10500) and marg.shape == (3500, 3)
+              and bool(np.isfinite(marg).all() and (marg > 0).all()))
+        _line("cli-gn", ok, time.perf_counter() - t0, expected=expected, rel_err=err,
+              tol=TOL_CLI["cli-gn"], iterations=res["iterations"], iterations_ref=iters_ref,
+              system_mtx=list(H.shape), system_mtx_nnz=int(H.nnz), marginals_rows=marg.shape[0],
+              t_generate_s=t_gen, launches=launches, **timings(res, lines))
+
+    # cli-city: dogleg "auto" on cityTrees10k, the sparse Schur engine and
+    # its v3 pose solve through the three kernels
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = os.path.join(d, "cityTrees10k.g2o")
+        with open(path, "w") as f:
+            f.write(datasets.make_city_trees(n_poses=10000, n_landmarks=100, seed=0)[0])
+        t_gen = time.perf_counter() - t0
+        dk.reset_launches()
+        rc, lines, res = _cli(["-i", path, "-nls", "lambda-dl", "--json", "-ns", "-nb"], d)
+        launches = dict(dk.launches)
+        shapes = sorted(dk.launch_shapes, key=lambda x: (x[0], x[1], x[2], x[3] or 0))
+        expected, iters_ref = JAX_REF["city-schur-sparse"]
+        err = rel(res["chi2"], expected)
+        ok = (rc == 0 and err <= TOL_CLI["cli-city"] and res["iterations"] == iters_ref
+              and res["solver"] == "lambda-dl"
+              and any(k.startswith("schur_sparse") for k in res["phases"])
+              and all(v > 0 for v in launches.values()) and set(map(tuple, shapes)) <= CHECKED)
+        per_iter["cli-city"] = {k: v / max(res["iterations"], 1) for k, v in launches.items()}
+        _line("cli-city", ok, time.perf_counter() - t0, expected=expected, rel_err=err,
+              tol=TOL_CLI["cli-city"], iterations=res["iterations"], iterations_ref=iters_ref,
+              t_generate_s=t_gen, launches=launches, kernel_shapes=shapes, **timings(res, lines))
+
+    # cli-inc-ba: LM at every CONSISTENCY_MARKER, then the final optimize
+    ref = JAX_REF["cli-inc-ba"]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = os.path.join(d, "inc_ba.g2o")
+        with open(path, "w") as f:
+            f.write(datasets.make_ba_scene_incremental(n_cams=6, n_points=50, obs_per_point=4,
+                                                       seed=1)[0])
+        dk.reset_launches()
+        rc, lines, res = _cli(["-i", path, "-nsp", "1", "-mnsi", "2", "--json", "-ns", "-nb",
+                               "--no-detailed-timing"], d)
+        err = rel(res["chi2"], ref["chi2"])
+        ok = rc == 0 and err <= TOL_CLI["cli-inc-ba"] and all(
+            res[k] == ref[k] for k in ("problem", "solver", "iterations", "incremental_solves"))
+        _line("cli-inc-ba", ok, time.perf_counter() - t0, reference=ref, rel_err=err,
+              tol=TOL_CLI["cli-inc-ba"], launches=dict(dk.launches), **timings(res, lines))
+
+    t0 = time.perf_counter()
+    dk.reset_launches()
+    res = regression.run(dev)
+    _line("regression", all(r["ok"] for r in res.values()), time.perf_counter() - t0,
+          tol=regression.TOL_CHI2, launches=dict(dk.launches),
+          cases={k: {f: r[f] for f in ("md5_ok", "chi2", "chi2_rel_err", "iterations")}
+                 for k, r in res.items()})
+
+    for name, module in (("simple_example", simple_example),
+                         ("ba_interface_example", ba_interface_example)):
+        import contextlib
+        import io
+
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            ret = module.main(["--device", "cuda"])
+        chi2 = ret if name == "simple_example" else ret.chi2()
+        expected = JAX_REF["examples"][name]
+        err = rel(chi2, expected)
+        _line(f"examples-{name}", err <= TOL_CLI["examples"] and math.isfinite(chi2),
+              time.perf_counter() - t0, chi2=chi2, expected=expected, rel_err=err,
+              tol=TOL_CLI["examples"], printed=out.getvalue().splitlines()[-3:])
+    return per_iter
+
+
+def _kernel_bench(summary, path="kernel_bench.csv") -> None:
+    """kernel_bench.csv (the CLI's -rmb): every timed case of the kernel
+    phase, device ms and the library's device ms beside the bound."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["kernel", "shape", "dtype", "device_ms", "library_ms", "bound_ms", "bound_by"])
+        for name, v in summary.items():
+            for sh in v["shapes"]:
+                w.writerow([name, "x".join(str(x) for x in sh["shape"]), sh["dtype"],
+                            sh["device_ms"], sh["library_device_ms"], sh["bound_ms"],
+                            sh["bound_by"]])
+
+
 def _incremental_phase(phase, engine, kw, counters, dev):
     """One incremental solver streamed over its graph and then
     optimized, against the JAX package's run; its kernel launches counted
@@ -1148,7 +1329,7 @@ def _incremental_phase(phase, engine, kw, counters, dev):
     return per
 
 
-def main() -> int:
+def main(kernels_only: bool = False) -> int:
     if not (ROOT / SOURCE).exists():
         print("FAIL: chip_smoke.py must run from a checkout of the repository", flush=True)
         return 2
@@ -1177,6 +1358,11 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     summary = _check_kernels(dev)
+    if kernels_only:
+        _kernel_bench(summary)
+        print(json.dumps({"seconds": time.perf_counter() - T_START,
+                          "kernel_bench": os.path.abspath("kernel_bench.csv")}), flush=True)
+        return 0
 
     from slampp_tpu_torch.apps import manhattan
 
@@ -1217,6 +1403,10 @@ def main() -> int:
 
     # Sim(3) bundle adjustment at venice871 scale, ROCV, Spheron, A, SPCG
     per_iter.update(_sim3_phases(dev))
+
+    # the slam_plus_plus CLI as a user runs it, the regression goldens, two
+    # examples
+    per_iter.update(_cli_phases(dev))
 
     # 13-15. the incremental solvers, in a child process of their own
     per_iter.update(_incremental_child())
@@ -1272,6 +1462,8 @@ def incremental_main() -> int:
 
 if __name__ == "__main__":
     entry = main
+    if sys.argv[1:] == ["--kernels"]:
+        entry = lambda: main(kernels_only=True)  # noqa: E731
     if sys.argv[1:] == ["--incremental"]:
         # the incremental solvers' host path is many small LAPACK calls,
         # which threaded OpenBLAS slows down: one thread, set before the

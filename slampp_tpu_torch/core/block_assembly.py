@@ -310,6 +310,14 @@ def assemble_blocks_sorted(graph: GraphArrays, bp: BlockPlan, hessian_f32: bool 
     return vals, rhs, chi2
 
 
+def assemble_blocks(graph: GraphArrays, bp: BlockPlan):
+    """Device: the same (vals, rhs, chi2) in float64 (counterpart of the
+    scatter form ``assemble_blocks``, ``slampp_tpu/core/block_assembly.py:370``).
+    The grouped sums of :func:`assemble_blocks_sorted` already add repeated
+    destinations without a scatter, so this is that form."""
+    return assemble_blocks_sorted(graph, bp)
+
+
 def scatter_dx(bp: BlockPlan, x: torch.Tensor) -> torch.Tensor:
     """Un-permute the panel solution (n, P) into the global dx vector;
     unused panel scalars land in a dropped tail."""

@@ -31,6 +31,17 @@ def clamp_angular_error_2pi(e: torch.Tensor) -> torch.Tensor:
     return torch.gather(cand, -1, pick)[..., 0]
 
 
+def relative_to_absolute(p1: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Compose: pose of ``d`` (relative to ``p1``) in the global frame
+    (C2DJacobians::Relative_to_Absolute, 2DSolverBase.h:108)."""
+    c, s = torch.cos(p1[..., 2]), torch.sin(p1[..., 2])
+    return torch.stack(
+        [p1[..., 0] + c * d[..., 0] - s * d[..., 1],
+         p1[..., 1] + s * d[..., 0] + c * d[..., 1],
+         clamp_angle_2pi(p1[..., 2] + d[..., 2])], -1
+    )
+
+
 def absolute_to_relative(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     """Pose of ``p2`` in the frame of ``p1`` (the edge expectation h(x))."""
     de, dn = p2[..., 0] - p1[..., 0], p2[..., 1] - p1[..., 1]

@@ -167,6 +167,11 @@ class GraphSystem:
     def n_edges(self) -> int:
         return self._edge_count
 
+    def edge_count(self, type_name: str) -> int:
+        """Edges of one type (0 for a type the graph does not hold)."""
+        rec = self._edges.get(type_name)
+        return len(rec["vids"]) if rec else 0
+
     @property
     def edge_type_names(self) -> List[str]:
         return sorted(self._edges.keys())
@@ -188,6 +193,12 @@ class GraphSystem:
     @property
     def state_dim(self) -> int:
         return self._layout()[1]
+
+    def chi2_dof(self) -> int:
+        """Degrees of freedom: the edges' residual dimensions less the
+        state dimension, at least 1 (for a normalized chi2)."""
+        m = sum(get_edge_type(t).res_dim * len(rec["vids"]) for t, rec in self._edges.items())
+        return max(1, m - self.state_dim)
 
     def update_states(self, new_states) -> None:
         """Write states (tensors on any device, or NumPy arrays) back into

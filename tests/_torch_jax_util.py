@@ -292,6 +292,111 @@ def jax_ba_references():
     return out
 
 
+def read_rows(path):
+    """A text file of whitespace-separated numbers as a list of float rows
+    (rows may differ in length: BA cameras and points)."""
+    with open(path) as f:
+        return [np.array([float(x) for x in ln.split()]) for ln in f if ln.strip()]
+
+
+def run_cli(main, argv, workdir):
+    """One CLI's ``main(argv)`` run in-process in ``workdir``, where its
+    solution.txt, marginals.txt and system.mtx land: (return code, stdout,
+    the --json line as a dict)."""
+    import contextlib
+    import io
+    import json
+
+    os.makedirs(workdir, exist_ok=True)
+    out = io.StringIO()
+    with contextlib.chdir(workdir), contextlib.redirect_stdout(out):
+        rc = main(list(argv))
+    lines = out.getvalue().splitlines()
+    return rc, out.getvalue(), json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
+
+
+def cli_pair(argv, tmp_path, port_argv=("--device", "cpu")):
+    """Both CLIs on the same arguments, each in its own directory under
+    ``tmp_path``: {"port": (rc, stdout, json, dir), "jax": (...)}."""
+    from slampp_tpu.apps.main import main as jax_main
+    from slampp_tpu_torch.apps.main import main as port_main
+
+    out = {}
+    for name, main, extra in (("jax", jax_main, ()), ("port", port_main, tuple(port_argv))):
+        d = os.path.join(str(tmp_path), name)
+        out[name] = (*run_cli(main, list(argv) + list(extra), d), d)
+    return out
+
+
+def assert_cli_match(runs, tol_chi2, tol_solution, tol_marginals=None, solution_scaled=False):
+    """The port's CLI run against the JAX CLI's: return codes 0, the same
+    problem, solver, iterations and incremental solves, chi2 within
+    ``tol_chi2`` relative (of at least 1, as scripts/regression.py holds
+    it), solution.txt within ``tol_solution`` absolute per entry (times
+    the largest state entry where ``solution_scaled``: mixed routes), and
+    marginals.txt (where ``tol_marginals``) within it relative per entry."""
+    (rc_p, _, res_p, dir_p), (rc_j, _, res_j, dir_j) = runs["port"], runs["jax"]
+    assert rc_p == 0 and rc_j == 0
+    for k in ("problem", "solver", "iterations", "incremental_solves"):
+        assert res_p[k] == res_j[k], (k, res_p[k], res_j[k])
+    assert abs(res_p["chi2"] - res_j["chi2"]) <= tol_chi2 * max(1.0, abs(res_j["chi2"])), (
+        res_p["chi2"], res_j["chi2"])
+    files = [("solution.txt", tol_solution, False)]
+    if tol_marginals is not None:
+        files.append(("marginals.txt", tol_marginals, True))
+    for name, tol, relative in files:
+        rows_p = read_rows(os.path.join(dir_p, name))
+        rows_j = read_rows(os.path.join(dir_j, name))
+        assert [len(r) for r in rows_p] == [len(r) for r in rows_j], name
+        if solution_scaled and not relative:
+            tol = tol * max(float(np.abs(r).max()) for r in rows_j)
+        for rp, rj in zip(rows_p, rows_j):
+            bound = tol * np.abs(rj) if relative else tol
+            assert np.all(np.abs(rp - rj) <= bound), (name, rp, rj)
+
+
+def jax_state_sensitivity(n_poses=200, n_rings=10, seeds=3, eps=1e-15):
+    """How far the JAX package's own GN states on sphere200 (the CLI's
+    -nls lambda route, native v1, f64) move when its start states are
+    scaled by 1 + eps N(0, 1): {seed: (chi2, iterations, max |x - x_0|)},
+    seed None being the run as it is."""
+    from slampp_tpu.solvers import GaussNewtonSolver
+
+    def run(seed):
+        s = jax_sphere_system(n_poses, n_rings)
+        if seed is not None:
+            _perturb_states(s, eps, seed)
+        gn = GaussNewtonSolver(s)
+        it = gn.optimize(5, 0.01)
+        return gn.chi2(), it, np.concatenate([s.vertex_state(v) for v in sorted(s.vertex_index)])
+
+    chi2, it, x0 = run(None)
+    out = {"none": (chi2, it, 0.0)}
+    for seed in range(1, seeds + 1):
+        c, i, x = run(seed)
+        out[str(seed)] = (c, i, float(np.abs(x - x0).max()))
+    return out
+
+
+def jax_cli_references():
+    """The JAX CLI's --json results for chip_smoke.py's CLI phases that have
+    no solver-level reference: the incremental BA marker path on
+    make_ba_scene_incremental(6, 50, 4, seed=1) with -nsp 1 -mnsi 2."""
+    import tempfile
+
+    from slampp_tpu.apps.main import main
+    from slampp_tpu.io.datasets import make_ba_scene_incremental
+
+    text, _ = make_ba_scene_incremental(n_cams=6, n_points=50, obs_per_point=4, seed=1)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "inc_ba.g2o")
+        with open(path, "w") as f:
+            f.write(text)
+        _, _, res = run_cli(main, ["-i", path, "-nsp", "1", "-mnsi", "2", "--json", "-ns",
+                                   "-nb", "--no-detailed-timing"], d)
+    return {"cli-inc-ba": res}
+
+
 def random_block_spd(n, bs, extra_pairs, seed):
     """Random SPD block matrix on a chain plus extra off-diagonal pairs
     (tests/test_sparse_chol.py): (A (n*bs, n*bs), sorted pairs (i, j), i > j)."""
@@ -878,6 +983,12 @@ if __name__ == "__main__":
     # and the first step at which FastL's sphere500 runs in the two packages
     # part (their resident states copied after every step):
     #   OPENBLAS_NUM_THREADS=1 python tests/_torch_jax_util.py --fastl-trace
+    # and for its CLI phase on the incremental BA marker path (the JAX
+    # CLI's --json line; a few seconds):
+    #   python tests/_torch_jax_util.py --cli
+    # and how far the JAX package's own GN states on sphere200 move with its
+    # start states scaled by 1 + 1e-15 N(0, 1) (3 seeds; seconds):
+    #   python tests/_torch_jax_util.py --cli-sensitivity
     # and how far the mixed v3 LM / dogleg results at sphere2500 move with
     # float32 rounding of the JAX package's Jacobians (14 runs, about half
     # an hour):
@@ -892,6 +1003,15 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     import slampp_tpu  # noqa: F401  (x64 at import)
 
+    if "--cli-sensitivity" in sys.argv:
+        for run, (chi2, it, dx) in jax_state_sensitivity().items():
+            print(json.dumps({"run": run, "chi2": chi2, "iterations": it, "max_state_diff": dx}),
+                  flush=True)
+        sys.exit(0)
+    if "--cli" in sys.argv:
+        for phase, ref in jax_cli_references().items():
+            print(json.dumps({"phase": phase, **ref}), flush=True)
+        sys.exit(0)
     if "--mixed-sensitivity" in sys.argv:
         for run, (chi2, applied) in mixed_solver_sensitivity().items():
             print(json.dumps({"run": run, "chi2": chi2, "applied": applied}), flush=True)
