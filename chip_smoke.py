@@ -183,6 +183,34 @@ the run with a non-zero exit code and no result line:
               .json): md5 equal, chi2 within 1e-6;
   examples    simple_example and ba_interface_example on the card: final
               chi2 within 1e-6 of the JAX package's examples' printed values.
+  (after examples: the multi-rank paths, apps/distributed.py and
+  graft_entry.py, each rank a process spawned on this card; NCCL at one
+  rank, gloo for two ranks on the one card, staging through the host)
+  dist-gn     NCCL, 1 rank: 5 edge-sharded distributed_gn_steps on
+              manhattan3500 (dense H 10500 x 10500 f64, 882 MB all-reduced
+              per step): chi2 at each step's input within 1e-6 and after
+              the last step within 1e-8 of the JAX package's
+              distributed_gn_step on a 1-device CPU mesh (TOL_DIST);
+  dist-ba-venice  NCCL, 1 rank: DistributedBigBASolver on the venice871-class
+              scene (871 / 110,000 / track 10, SC 5226 x 5226 f64, 218 MB
+              all-reduced per step), 5 LM iterations: chi2 within 1e-6 of
+              JAX_REF["ba-venice-f64"] and 1e-8 of this run's ba-venice-f64,
+              5 accepted, chi2 at the start within 1e-9;
+  dist-ba-venice-2  2 gloo ranks on the card, the same scene: within 1e-9
+              of dist-ba-venice, the same accepted count, both ranks on cuda;
+  dist-marginals  NCCL, 1 rank: distributed_big_ba_marginals at 871 / 30,000
+              / track 10, alpha 1e-2: largest entries, trace sums, first /
+              middle / last blocks and seeded combinations of every block
+              against the JAX package's (with exact segment sums): landmark
+              blocks within 1e-8 and camera blocks within 1e-6 of the
+              largest entry (TOL_DIST);
+  dist-chunks eliminate_chunks_mesh on 64 chunks of D = 96 (f64), NCCL at 1
+              rank and gloo at 2: within 1e-10 of a NumPy sequential
+              elimination;
+  dryrun-multichip  graft_entry.dryrun_multichip at 1 rank (NCCL) and 2
+              (gloo): every result finite.
+  No dist phase launches a kernel of the kernel phase (the replicated SC
+  and chunk factors are torch.linalg's, as lax.linalg's in the JAX package).
 Each phase's launches are counted from zero over that phase alone.  The
 whole script takes about ten minutes on an H100, the kernels' build
 included, and prints its seconds before the summary.  The kernel summary gives each kernel's times at the main path's
@@ -328,6 +356,39 @@ JAX_REF = {
     # examples/ba_interface_example.py print on the CPU
     "examples": {"simple_example": 0.026236778263065454,
                  "ba_interface_example": 737.1501359124949},
+    # the distributed phases, by
+    #   python tests/_torch_jax_util.py --dist
+    # dist-gn: JAX's distributed_gn_step iterated 5 times on a 1-device CPU
+    # mesh on manhattan3500 (chi2 at each step's input, then after the
+    # last); dist-marginals: JAX's distributed_big_ba_marginals on a 1-device
+    # CPU mesh on the venice-class scene at 871 / 30,000 / track 10, alpha
+    # 1e-2, with exact segment sums (its prefix sums lie prefix_sum_rel_err
+    # from them: twice the largest landmark entry), summarized by
+    # apps/distributed.marginals_summary; dist-ba-venice holds
+    # "ba-venice-f64" above
+    "dist-gn": {"n_poses": 3500, "chi2": [1321146.3686662614, 107722.32962442987, 6597.694643355835, 406.42464700130415, 404.5039355737421], "chi2_final": 404.5038446353009},
+    "dist-marginals": {
+        "n_cams": 871,
+        "n_points": 29996,
+        "alpha": 0.01,
+        "prefix_sum_rel_err": {"cam": 2.071425801243961e-08, "lm": 1.995041035379643},
+        "cam_max": 0.03057133673799702,
+        "lm_max": 55.8371521406997,
+        "cam_trace": 29.075803655143506,
+        "lm_trace": 90035.08422002128,
+        "cam_blocks": {
+            "0": [[0.019620109011949653, 4.297253751953121e-06, 0.0031890376104000795, -1.1890949402890892e-06, 1.249186140651194e-06, -3.7221730989630593e-06], [4.297253751953121e-06, 0.003635333982576748, -3.873111890418833e-06, -2.023353194919181e-06, -3.9737435365869446e-07, -1.5325097171102872e-06], [0.0031890376104000795, -3.873111890418833e-06, 0.0039009544546006634, 1.237164956913206e-06, 1.346951460730083e-06, 1.4017115554630737e-07], [-1.1890949402890892e-06, -2.023353194919181e-06, 1.237164956913206e-06, 0.00018107002801049187, 4.245261598633385e-07, 5.8639004848295636e-08], [1.249186140651194e-06, -3.9737435365869446e-07, 1.346951460730083e-06, 4.245261598633385e-07, 0.0001800449417421937, -3.608844361885402e-07], [-3.7221730989630593e-06, -1.5325097171102872e-06, 1.4017115554630737e-07, 5.8639004848295636e-08, -3.608844361885402e-07, 0.00010915824270331533]],
+            "435": [[0.03056566064153065, 0.00036330209006843895, -0.005619759940399803, 4.6606223786046953e-07, 4.4114970031639664e-07, -1.2967103902539758e-06], [0.00036330209006843895, 0.003687190163850893, -8.441624835935283e-05, -2.0086594157867943e-06, -4.568847914559243e-07, -3.5559857355379446e-06], [-0.005619759940399803, -8.441624835935283e-05, 0.004449496957942909, 1.3768409039710432e-06, 1.2101791515919464e-06, 5.062300433031687e-07], [4.6606223786046953e-07, -2.0086594157867943e-06, 1.3768409039710432e-06, 0.0001813425453839284, 3.5395786848190475e-07, 5.659372395754501e-07], [4.4114970031639664e-07, -4.568847914559243e-07, 1.2101791515919464e-06, 3.5395786848190475e-07, 0.00018023373768993287, -3.7833858392426613e-07], [-1.2967103902539758e-06, -3.5559857355379446e-06, 5.062300433031687e-07, 5.659372395754501e-07, -3.7833858392426613e-07, 0.00011135403752587259]],
+            "870": [[0.01966112034149908, -0.00020362701097812705, 0.003190909577723238, -1.9597337385255283e-07, 1.3008331816545755e-06, -2.156004676972794e-06], [-0.00020362701097812705, 0.0036443341602728405, -4.0905527477709917e-05, -2.1379705585085703e-06, -4.163303909426643e-07, -3.4390408666251343e-06], [0.003190909577723238, -4.0905527477709917e-05, 0.003900404989597336, 1.4932468535974307e-06, 1.3717156335437539e-06, 3.850616354636731e-07], [-1.9597337385255283e-07, -2.1379705585085703e-06, 1.4932468535974307e-06, 0.0001810746187529532, 4.134536439434183e-07, 2.7364894909429103e-08], [1.3008331816545755e-06, -4.163303909426643e-07, 1.3717156335437539e-06, 4.134536439434183e-07, 0.0001799210282656789, -3.791427996756463e-07], [-2.156004676972794e-06, -3.4390408666251343e-06, 3.850616354636731e-07, 2.7364894909429103e-08, -3.791427996756463e-07, 0.00010912573845133281]],
+        },
+        "lm_blocks": {
+            "0": [[0.006980064540335756, -0.011952198559630091, -0.002065157376322831], [-0.011952198559631063, 0.05184682220130411, 0.00810595052298168], [-0.00206515737632299, 0.008105950522981643, 0.004865936727534925]],
+            "14998": [[0.00752129419311226, -0.013144558702059432, -0.003776395553797785], [-0.013144558702057052, 0.05099981208400885, 0.013624846787590027], [-0.0037763955537976164, 0.013624846787591856, 0.007501971786441966]],
+            "29995": [[0.014003609146210289, -0.003419976272631827, 0.0015569203223926996], [-0.003419976272629842, 0.016761622994387458, -0.002026823121433063], [0.0015569203223966342, -0.0020268231214382493, 0.019301791416886163]],
+        },
+        "cam_mix": [[0.00031562228232386827, 0.00032639400255915924, 5.9692191741433675e-05, 2.2252823240129044e-08, -9.524169805622027e-08, 1.8693171005039153e-08], [0.00032639400255915924, -0.0007557100662279742, 3.7608593027049845e-06, 3.2137570867113056e-08, -6.582412677635583e-09, 5.985250889953682e-08], [5.9692191741433675e-05, 3.7608593027049845e-06, -8.833276073033644e-05, -2.0852456195073878e-08, -2.1865164363663935e-08, 7.073098848376461e-09], [2.2252823240129044e-08, 3.2137570867113056e-08, -2.0852456195073878e-08, -4.413508397415036e-06, -1.0307235607722545e-08, -2.9347839841657937e-09], [-9.524169805622027e-08, -6.582412677635583e-09, -2.1865164363663935e-08, -1.0307235607722545e-08, -4.390719368077518e-06, 1.865838569083741e-09], [1.8693171005039153e-08, 5.985250889953682e-08, 7.073098848376461e-09, -2.9347839841657937e-09, 1.865838569083741e-09, -2.6409952537668764e-06]],
+        "lm_mix": [[-0.02873641145492214, -0.00423607650978818, 0.0007750636412498938], [-0.004236076509669162, -0.0036972676053987994, 0.0027193520789743505], [0.0007750636412395815, 0.0027193520789763953, -0.0022635303436928673]],
+    },
 }
 # the CLI phases: cli-gn and cli-inc-ba are float64 (TOL_SOLVER_F64),
 # cli-city the mixed sparse Schur engine (TOL_3500); the regression goldens
@@ -415,6 +476,9 @@ class Failure(Exception):
 # (kernel, K, M, S, dtype) of every case the kernel phase held to its plain
 # version; a path phase may require that its launches stayed within them
 CHECKED: set = set()
+# a phase's result that a later phase is held to (ba-venice-f64 for
+# dist-ba-venice)
+RESULTS: dict = {}
 
 
 def _line(phase: str, ok: bool, t: float, **info) -> None:
@@ -1023,6 +1087,7 @@ def _ba_phases(dev) -> dict:
               and res["n_obs"] == ref["n_obs"] and not any(dk.launches.values())
               and abs(res["chi2_init"] - ref["chi2_init"]) <= 1e-9 * ref["chi2_init"])
         _line(phase, ok, time.perf_counter() - t0, reference=ref, rel_err=rel, tol=tol, **res)
+        RESULTS[phase] = res
 
     expected, applied_ref = JAX_REF["ba-schur"]
     t0 = time.perf_counter()
@@ -1139,6 +1204,126 @@ def _sim3_phases(dev) -> dict:
         _line(phase, ok, time.perf_counter() - t0, expected=expected, applied_ref=applied_ref,
               rel_err=err, tol=TOL_SIM3[phase], launches_phase=launches, **res)
     return per_iter
+
+
+# the distributed phases.  dist-gn: chi2 at each step's input within 1e-6 of
+# JAX's distributed_gn_step on a 1-device CPU mesh and after the last step
+# within 1e-8; manhattan3500's H has condition number ~7.6e12 (the eigen
+# phase), so the f64 Cholesky's rounding moves the intermediate states:
+# the port on the CPU reads 9.6e-8 from JAX after the first step, the card
+# 3.0e-7, and both meet JAX's optimum to 1e-15; JAX's own chi2 there moves
+# 1.9e-8 to 1.1e-7 when its start states are scaled by 1 + 1e-15 N(0, 1)
+# (tests/_torch_jax_util.py --dist-sensitivity, 3 seeds).  dist-ba-venice: against JAX's f64 BigBASolver (the same math and
+# LM loop: TOL_BA's f64 bound) and within 1e-8 of this run's own
+# ba-venice-f64; the 2-rank run within 1e-9 of the 1-rank one (only the
+# reduction's summation order differs).  dist-marginals: the landmark
+# blocks within 1e-8 of the largest landmark entry; the camera blocks, the
+# diagonal of SC^-1 with SC's condition number 5.4e9 at alpha 1e-2
+# (cond * eps = 6e-7), within 1e-6 of the largest camera entry (the port
+# reads 1.4e-7 on the CPU; JAX's own move 5.8e-8 to 9.5e-8 under the same
+# start noise, its landmark blocks 6e-11 to 1.2e-10).  The chunk eliminations against NumPy within
+# 1e-10
+TOL_DIST = {"dist-gn": 1e-6, "dist-gn-final": 1e-8, "dist-ba-venice": 1e-6,
+            "dist-ba-venice-own": 1e-8, "dist-ba-venice-2": 1e-9, "dist-marginals-cam": 1e-6,
+            "dist-marginals-lm": 1e-8, "dist-chunks": 1e-10}
+
+
+def _dist_phases(dev) -> dict:
+    """The multi-rank phases (apps/distributed, graft_entry), each rank a
+    spawned process on this card: NCCL at one rank, gloo for two ranks on
+    the one card.  Returns each phase's kernel launches (counted in its
+    ranks)."""
+    import numpy as np
+    import torch
+
+    from slampp_tpu_torch import graft_entry
+    from slampp_tpu_torch.apps import distributed as ad
+
+    torch.cuda.empty_cache()  # the ranks are processes of their own on this card
+    launches = {}
+
+    def none_launched(phase, res):
+        launches[phase] = {k: res["launches"].get(k, 0) for k in REPLACES}
+        return not any(launches[phase].values())
+
+    ref = JAX_REF["dist-gn"]
+    t0 = time.perf_counter()
+    res = ad.run_dist_gn(3500, 1, "nccl", dev, timeout_s=300)
+    states = res.pop("states")
+    rel = [abs(a - b) / b for a, b in zip(res["chi2"] + [res["chi2_final"]],
+                                          ref["chi2"] + [ref["chi2_final"]])]
+    ok = (max(rel[:-1]) <= TOL_DIST["dist-gn"] and rel[-1] <= TOL_DIST["dist-gn-final"]
+          and res["backend"] == "nccl"
+          and all(bool(np.isfinite(v).all()) for v in states.values()))
+    _line("dist-gn", none_launched("dist-gn", res) and ok, time.perf_counter() - t0, reference=ref,
+          rel_err=rel, tol=[TOL_DIST["dist-gn"], TOL_DIST["dist-gn-final"]], **res)
+
+    # one scene for both venice phases
+    t0 = time.perf_counter()
+    scene = tuple(ad.venice_scene(871, 110_000, 10))
+    t_gen = time.perf_counter() - t0
+    ref, own = JAX_REF["ba-venice-f64"], RESULTS["ba-venice-f64"]["chi2_final"]
+    res = ad.run_dist_venice(world=1, backend="nccl", device=dev, scene=scene, timeout_s=300)
+    res["t_generate_s"] = t_gen
+    rel = abs(res["chi2_final"] - ref["chi2_final"]) / ref["chi2_final"]
+    rel_own = abs(res["chi2_final"] - own) / own
+    ok = (rel <= TOL_DIST["dist-ba-venice"] and rel_own <= TOL_DIST["dist-ba-venice-own"]
+          and res["lm_accepted"] == ref["lm_accepted"] and res["n_obs"] == ref["n_obs"]
+          and abs(res["chi2_init"] - ref["chi2_init"]) <= 1e-9 * ref["chi2_init"]
+          and res["backend"] == "nccl")
+    _line("dist-ba-venice", none_launched("dist-ba-venice", res) and ok,
+          time.perf_counter() - t0, reference=ref, rel_err=rel, rel_err_own=rel_own,
+          chi2_own=own, tol=TOL_DIST["dist-ba-venice"], **res)
+    one = res
+
+    t0 = time.perf_counter()
+    res = ad.run_dist_venice(world=2, backend="gloo", device=dev, scene=scene, timeout_s=400)
+    rel = abs(res["chi2_final"] - one["chi2_final"]) / one["chi2_final"]
+    ok = (rel <= TOL_DIST["dist-ba-venice-2"] and res["lm_accepted"] == one["lm_accepted"]
+          and res["world"] == 2 and res["backend"] == "gloo"
+          and all(d.startswith("cuda") for d in res["rank_devices"]))
+    _line("dist-ba-venice-2", none_launched("dist-ba-venice-2", res) and ok,
+          time.perf_counter() - t0, rel_err_vs_world1=rel, tol=TOL_DIST["dist-ba-venice-2"],
+          **res)
+    del scene
+
+    ref = JAX_REF["dist-marginals"]
+    t0 = time.perf_counter()
+    res = ad.run_dist_marginals(871, 30_000, 10, 1, "nccl", dev, alpha=ref["alpha"],
+                                timeout_s=300)
+    got = ad.marginals_summary(res.pop("cam_cov"), res.pop("lm_cov"))
+    # blocks and their combinations over the largest camera / landmark
+    # entry; the largest entries and the trace sums relative
+    rel = {}
+    for k, v in got.items():
+        scale = ref["cam_max" if k.startswith("cam") else "lm_max"]
+        if isinstance(v, dict):
+            for i, blk in v.items():
+                rel[f"{k}[{i}]"] = float(np.abs(np.asarray(blk) - ref[k][i]).max() / scale)
+        elif isinstance(v, list):
+            rel[k] = float(np.abs(np.asarray(v) - ref[k]).max() / scale)
+        else:
+            rel[k] = abs(v - ref[k]) / abs(ref[k])
+    tol = {k: TOL_DIST["dist-marginals-" + k[:k.index("_")]] for k in rel}
+    ok = (all(rel[k] <= tol[k] for k in rel) and res["n_points"] == ref["n_points"]
+          and bool(np.isfinite(got["cam_trace"]) and np.isfinite(got["lm_trace"])))
+    _line("dist-marginals", none_launched("dist-marginals", res) and ok,
+          time.perf_counter() - t0, rel_err=rel, tol=tol,
+          cam_trace=got["cam_trace"], lm_trace=got["lm_trace"], **res)
+
+    t0 = time.perf_counter()
+    runs = {f"{backend}-{world}": ad.run_dist_chunks(64, 96, world, backend, dev, timeout_s=120)
+            for world, backend in ((1, "nccl"), (2, "gloo"))}
+    ok = all(r["finite"] and max(r["err_sc"], r["err_rhs"]) <= TOL_DIST["dist-chunks"]
+             and all(d.startswith("cuda") for d in r["rank_devices"]) for r in runs.values())
+    _line("dist-chunks", ok, time.perf_counter() - t0, tol=TOL_DIST["dist-chunks"], runs=runs)
+
+    t0 = time.perf_counter()
+    runs = {f"{backend}-{world}": graft_entry.dryrun_multichip(world, backend, dev, timeout_s=180)
+            for world, backend in ((1, "nccl"), (2, "gloo"))}
+    _line("dryrun-multichip", all(d.startswith("cuda") for r in runs.values() for d in
+                                  (x["device"] for x in r)), time.perf_counter() - t0, runs=runs)
+    return launches
 
 
 def _cli(argv, workdir):
@@ -1407,6 +1592,9 @@ def main(kernels_only: bool = False) -> int:
     # the slam_plus_plus CLI as a user runs it, the regression goldens, two
     # examples
     per_iter.update(_cli_phases(dev))
+
+    # the multi-rank paths: NCCL at one rank, two gloo ranks on this card
+    per_iter.update(_dist_phases(dev))
 
     # 13-15. the incremental solvers, in a child process of their own
     per_iter.update(_incremental_child())

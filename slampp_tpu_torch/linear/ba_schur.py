@@ -80,9 +80,12 @@ class BASchurPlan(NamedTuple):
     anchor_lm: int  # -1 when the gauge anchor is a camera
 
 
-def build_ba_schur_plan(system, device="cuda") -> BASchurPlan:
-    """The host symbolic phase of a BA GraphSystem (cam / xyz vertices,
-    edge_p2c)."""
+def ba_system_arrays(system):
+    """(cam ids, landmark ids, cam states, landmark states, obs_cam, obs_lm,
+    uv, info, anchor_cam, anchor_lm) of a BA GraphSystem (cam / xyz
+    vertices, edge_p2c): cameras and landmarks in vertex-id order, the
+    gauge anchor as the system's unary anchor (a camera, a landmark, else
+    camera 0)."""
     cam_ids = sorted(v for v, (t, _) in system.vertex_index.items() if t == "cam")
     lm_ids = sorted(v for v, (t, _) in system.vertex_index.items() if t == "xyz")
     cam_pos = {v: i for i, v in enumerate(cam_ids)}
@@ -99,7 +102,16 @@ def build_ba_schur_plan(system, device="cuda") -> BASchurPlan:
         anchor_cam, anchor_lm = -1, lm_pos[av]
     else:
         anchor_cam, anchor_lm = 0, -1
-    return build_ba_schur_plan_arrays(len(cam_ids), len(lm_ids), oc, ol, uv, info,
+    cams = np.stack([system.vertex_state(v) for v in cam_ids])
+    lms = np.stack([system.vertex_state(v) for v in lm_ids])
+    return cam_ids, lm_ids, cams, lms, oc, ol, uv, info, anchor_cam, anchor_lm
+
+
+def build_ba_schur_plan(system, device="cuda") -> BASchurPlan:
+    """The host symbolic phase of a BA GraphSystem (cam / xyz vertices,
+    edge_p2c)."""
+    _, _, cams, lms, oc, ol, uv, info, anchor_cam, anchor_lm = ba_system_arrays(system)
+    return build_ba_schur_plan_arrays(len(cams), len(lms), oc, ol, uv, info,
                                       anchor_cam=anchor_cam, anchor_lm=anchor_lm, device=device)
 
 

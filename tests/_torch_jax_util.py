@@ -292,6 +292,169 @@ def jax_ba_references():
     return out
 
 
+class VeniceStandIn:
+    """What the JAX package's ``build_big_ba_shards`` reads of a
+    GraphSystem, made from ``make_venice_ba_arrays``' arrays (cameras are
+    vertices 0 .. n_c - 1, landmarks n_c ..; the gauge anchor camera 0, as
+    the port's ``from_arrays``), so that no million-edge GraphSystem is
+    built."""
+
+    def __init__(self, cams, lms, oc, ol, uv, info):
+        n_c = len(cams)
+        self._states = np.concatenate([np.asarray(cams), np.pad(np.asarray(lms), ((0, 0), (0, 8)))])
+        self.vertex_index = {i: ("cam", i) for i in range(n_c)}
+        self.vertex_index.update({n_c + j: ("xyz", j) for j in range(len(lms))})
+        self._dims = {"cam": 11, "xyz": 3}
+        self._edges = {"edge_p2c": {"vids": list(zip((n_c + np.asarray(ol)).tolist(),
+                                                     np.asarray(oc).tolist())),
+                                    "meas": uv, "sigma_inv": info}}
+        self._unary_anchor = 0
+
+    def vertex_state(self, v):
+        return self._states[v][: self._dims[self.vertex_index[v][0]]]
+
+
+def jax_dist_gn_reference(n_poses=3500, n_steps=5):
+    """chip_smoke.py's dist-gn reference: the JAX package's
+    distributed_gn_step iterated ``n_steps`` times on a 1-device CPU mesh
+    on the seed-0 Manhattan graph: chi2 at each step's input and after the
+    last."""
+    from slampp_tpu.core.assembly import graph_chi2
+    from slampp_tpu.parallel import distributed_gn_step, make_mesh, shard_graph_edges
+
+    mesh = make_mesh(1)
+    graph = shard_graph_edges(jax_system(n_poses).snapshot(), mesh)
+    chi2 = []
+    for _ in range(n_steps):
+        states, _, c2 = distributed_gn_step(graph, mesh)
+        graph = graph.replace_states(states)
+        chi2.append(float(c2))
+    return {"n_poses": n_poses, "chi2": chi2, "chi2_final": float(graph_chi2(graph))}
+
+
+def jax_segsum_exact(data, starts, ends):
+    """The JAX package's sorted segment sums (``distributed_ba._segsum``:
+    a difference of two entries of one running prefix sum) as one scatter
+    sum per segment, which keeps each segment's own rounding: at
+    871 / 30,000 the prefix sums' cancellation moves the landmark marginals
+    by up to twice their largest entry."""
+    import jax
+    import jax.numpy as jnp
+
+    ids = jnp.searchsorted(ends, jnp.arange(data.shape[0]), side="right")
+    return jax.ops.segment_sum(data, ids, num_segments=starts.shape[0] + 1)[: starts.shape[0]]
+
+
+def jax_dist_marginals(scene, alpha=1e-2, exact=True):
+    """The JAX package's distributed_big_ba_marginals on a 1-device CPU mesh
+    on a venice-class scene's arrays: (camera blocks, landmark blocks),
+    with exact segment sums (``jax_segsum_exact``) unless ``exact`` is
+    false."""
+    from slampp_tpu.parallel import distributed_ba as jdba
+    from slampp_tpu.parallel.distributed import make_mesh
+
+    mesh = make_mesh(1, axis="lm")
+    shards = jdba.build_big_ba_shards(VeniceStandIn(*scene), mesh)
+    orig = jdba._segsum
+    if exact:
+        jdba._segsum = jax_segsum_exact
+    jdba._big_marginals_fn.cache_clear()
+    try:
+        cam_cov, lm_cov = jdba.distributed_big_ba_marginals(shards, mesh, alpha=alpha)
+    finally:
+        jdba._segsum = orig
+        jdba._big_marginals_fn.cache_clear()
+    return np.asarray(cam_cov), np.asarray(lm_cov).reshape(-1, 3, 3)[: len(scene[1])]
+
+
+def _venice_scene(n_cams, n_points, mean_track):
+    from slampp_tpu.io.datasets import make_venice_ba_arrays
+
+    return make_venice_ba_arrays(n_cams=n_cams, n_points=n_points, mean_track=mean_track,
+                                 seed=0)[:6]
+
+
+def jax_dist_marginals_reference(n_cams=871, n_points=30_000, mean_track=10, alpha=1e-2):
+    """chip_smoke.py's dist-marginals reference: the JAX package's
+    distributed marginals (exact segment sums) on the seed-0 venice-class
+    scene, summarized by the port's ``apps/distributed.marginals_summary``,
+    and how far the JAX package's own prefix-sum result lies from it
+    (largest block difference over the largest entry)."""
+    from slampp_tpu_torch.apps.distributed import marginals_summary
+
+    scene = _venice_scene(n_cams, n_points, mean_track)
+    cam_cov, lm_cov = jax_dist_marginals(scene, alpha)
+    cam_p, lm_p = jax_dist_marginals(scene, alpha, exact=False)
+    return {"n_cams": n_cams, "n_points": len(scene[1]), "alpha": alpha,
+            "prefix_sum_rel_err": {
+                "cam": float(np.abs(cam_p - cam_cov).max() / np.abs(cam_cov).max()),
+                "lm": float(np.abs(lm_p - lm_cov).max() / np.abs(lm_cov).max())},
+            **marginals_summary(cam_cov, lm_cov)}
+
+
+def port_sc_condition(n_cams=871, n_points=30_000, mean_track=10, alpha=1e-2):
+    """The condition number of the damped reduced camera system that
+    dist-marginals inverts, from the port on the CPU in a one-rank gloo
+    group."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from slampp_tpu_torch.apps.distributed import venice_scene
+    from slampp_tpu_torch.parallel import distributed_ba as pdb
+    from slampp_tpu_torch.parallel.distributed import make_mesh
+
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=0, world_size=1)
+        try:
+            mesh = make_mesh("cpu")
+            sh = pdb.build_big_ba_shards_arrays(*venice_scene(n_cams, n_points, mean_track), mesh)
+            _, B, BD, _, _, _, Hcc = pdb._local_terms(sh, alpha)
+            N = 6 * sh.plan.n_c
+            SC = torch.empty((N, N), dtype=torch.float64)
+            pdb._sc_part(sh, B, BD, Hcc, SC)
+            pdb._damp_cameras(SC, alpha, sh.anchor_cam)
+            ev = torch.linalg.eigvalsh(0.5 * (SC + SC.T))
+        finally:
+            dist.destroy_process_group()
+    return float(ev[-1] / ev[0])
+
+
+def jax_dist_sensitivity(seeds=3, eps=1e-15):
+    """How far the JAX package's own distributed results move when the
+    start states are scaled entry by entry by 1 + eps N(0, 1): chi2 at each
+    of 5 distributed_gn_steps on manhattan3500 (relative), and the
+    distributed marginals (exact segment sums) at 871 / 30,000 (largest
+    block difference over the largest entry), against the unperturbed
+    run."""
+    from slampp_tpu.parallel import distributed_gn_step, make_mesh, shard_graph_edges
+
+    def gn(system):
+        mesh = make_mesh(1)
+        graph = shard_graph_edges(system.snapshot(), mesh)
+        chi2 = []
+        for _ in range(5):
+            states, _, c2 = distributed_gn_step(graph, mesh)
+            graph = graph.replace_states(states)
+            chi2.append(float(c2))
+        return np.asarray(chi2)
+
+    scene = _venice_scene(871, 30_000, 10)
+    gn0, (cam0, lm0) = gn(jax_system(3500)), jax_dist_marginals(scene)
+    out = {}
+    for seed in range(seeds):
+        chi2 = gn(_perturb_states(jax_system(3500), eps, seed))
+        rng = np.random.default_rng(seed)
+        cams, lms = (a * (1.0 + eps * rng.standard_normal(a.shape)) for a in scene[:2])
+        cam, lm = jax_dist_marginals((cams, lms) + tuple(scene[2:]))
+        out[f"seed {seed}"] = {
+            "gn_chi2_rel": (np.abs(chi2 - gn0) / gn0).tolist(),
+            "cam_rel": float(np.abs(cam - cam0).max() / np.abs(cam0).max()),
+            "lm_rel": float(np.abs(lm - lm0).max() / np.abs(lm0).max())}
+    return out
+
+
 def read_rows(path):
     """A text file of whitespace-separated numbers as a list of float rows
     (rows may differ in length: BA cameras and points)."""
@@ -989,6 +1152,14 @@ if __name__ == "__main__":
     # and how far the JAX package's own GN states on sphere200 move with its
     # start states scaled by 1 + 1e-15 N(0, 1) (3 seeds; seconds):
     #   python tests/_torch_jax_util.py --cli-sensitivity
+    # and for its distributed phases (JAX's distributed_gn_step iterated 5
+    # times on manhattan3500, its distributed marginals of the venice-class
+    # scene at 871 / 30,000, both on a 1-device CPU mesh):
+    #   python tests/_torch_jax_util.py --dist
+    # and how far those JAX results move with the start states scaled by
+    # 1 + 1e-15 N(0, 1) (3 seeds; half an hour), after the condition number
+    # of the marginals' damped SC (the port's, on the CPU):
+    #   python tests/_torch_jax_util.py --dist-sensitivity
     # and how far the mixed v3 LM / dogleg results at sphere2500 move with
     # float32 rounding of the JAX package's Jacobians (14 runs, about half
     # an hour):
@@ -1003,6 +1174,16 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     import slampp_tpu  # noqa: F401  (x64 at import)
 
+    if "--dist-sensitivity" in sys.argv:
+        print(json.dumps({"dist-marginals SC condition": port_sc_condition()}), flush=True)
+        for run, res in jax_dist_sensitivity().items():
+            print(json.dumps({"run": run, **res}), flush=True)
+        sys.exit(0)
+    if "--dist" in sys.argv:
+        print(json.dumps({"phase": "dist-gn", **jax_dist_gn_reference()}), flush=True)
+        print(json.dumps({"phase": "dist-marginals", **jax_dist_marginals_reference()}),
+              flush=True)
+        sys.exit(0)
     if "--cli-sensitivity" in sys.argv:
         for run, (chi2, it, dx) in jax_state_sensitivity().items():
             print(json.dumps({"run": run, "chi2": chi2, "iterations": it, "max_state_diff": dx}),
