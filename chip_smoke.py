@@ -14,15 +14,19 @@ the run with a non-zero exit code and no result line:
               streaming, large), at the exact mode's f64 shapes, the first
               M on each side of its resident / streaming boundary, the
               separators (1, 3952) in both dtypes and (1, 6400) in f64,
-              the TRSMs at an M beyond the resident slab size and one at
-              which each x_p is pulled, not pushed; timed against the plain
-              version and the library call (torch.linalg.cholesky_ex for
-              the Cholesky; the TRSMs' plain version is
-              torch.linalg.solve_triangular) with CUDA events around 20
-              calls (ms, host launch path included) and as device time per
-              launch from torch.profiler (device_ms), beside the bound
-              (bound_ms: the card's least time for the call's bytes or FLOPs
-              at its peak rates);
+              the TRSMs in each of their three forms (cluster, separator,
+              columns: each line says which) on both sides of each
+              crossover, with frozen pivots at a separator M, K = 2 at a
+              large M and an M beyond the cluster form's old cap; timed
+              against the plain version and the library call
+              (torch.linalg.cholesky_ex for the Cholesky; the TRSMs' plain
+              version is torch.linalg.solve_triangular) with CUDA events
+              around 20 calls (ms, host launch path included) and as device
+              time per launch from torch.profiler (device_ms), beside the
+              bound (bound_ms: the card's least time for the call's bytes or
+              FLOPs at its peak rates); then one separator-form TRSM captured
+              in a CUDA graph and replayed on new right-hand sides
+              (trsm-graph);
   4. main     manhattan3500, mixed precision, chain mode, target 64,
               refine 0, 5 fused GN iterations; chi2 within 5e-3 of the f64
               oracle 404.504, every kernel launched by that run;
@@ -522,17 +526,21 @@ def _reps(fn, budget_s: float = 0.5) -> int:
     return max(1, min(20, int(budget_s / max(time.perf_counter() - t0, 1e-6))))
 
 
-def _device_ms(fn, reps: int = 20, warmup: int = 3, one_launch: bool = False):
-    """Device time per call of ``fn`` and where it came from: the summed
-    duration of the device events (kernels, copies) that ``reps`` calls
-    leave in a torch.profiler trace, over ``reps`` ("trace").  Unlike CUDA
-    events around the calls, it leaves out the host's time between
-    launches.  The card's traces lose device events now and then (fewer
-    events than calls, at any kernel length): where ``fn`` is
-    ``one_launch`` (a port kernel), the time is the mean over the events the
-    trace kept ("trace, k of n events"); otherwise a trace with fewer events
-    than calls is taken again, and after three such traces CUDA events
-    around the calls, host gaps included, stand in ("events")."""
+def _device_ms(fn, reps: int = 20, warmup: int = 3):
+    """Device time per call of ``fn`` and where it came from: from the
+    device events (kernels, copies, memsets) that ``reps`` calls leave in a
+    torch.profiler trace.  Unlike CUDA events around the calls, it leaves
+    out the host's time between launches.  The card's traces lose device
+    events now and then (at any kernel length).  Where every kind of event
+    occurs at most once per call (a port kernel: its kernel and, for the
+    separator-form TRSM, its workspace memset; torch.linalg.solve_triangular),
+    the time is the sum over the kinds of each kind's mean over the events
+    the trace kept ("trace", or "trace, k of n events" when it lost some).
+    Otherwise (the plain Cholesky, cholesky_ex: several events of a kind per
+    call) the summed duration over ``reps`` counts when the number of events
+    is a multiple of the calls, a trace that lost some is taken again, and
+    after three such traces CUDA events around the calls, host gaps
+    included, stand in ("events")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -545,13 +553,15 @@ def _device_ms(fn, reps: int = 20, warmup: int = 3, one_launch: bool = False):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count]
         n = sum(e.count for e in events)
-        total = sum(e.self_device_time_total for e in events) / 1000.0
-        if n >= reps:
-            return total / reps, "trace"
-        if n and one_launch:
-            return total / n, f"trace, {n} of {reps} events"
+        if n and all(e.count <= reps for e in events):
+            per_call = sum(e.self_device_time_total / e.count for e in events) / 1000.0
+            full = reps * len(events)
+            return per_call, "trace" if n == full else f"trace, {n} of {full} events"
+        if n and n % reps == 0:  # a lost event leaves a count off the multiple
+            return sum(e.self_device_time_total for e in events) / 1000.0 / reps, "trace"
     return _time_ms(fn, reps, warmup=0), "events"
 
 
@@ -608,8 +618,9 @@ def _check_kernels(dev):
         # memory), the separator (the large form), the exact mode's f64
         # shapes and the first M on each side of the resident / streaming
         # boundary (both stream at K = 2).
-        # TRSMs: M = 1096 is beyond their resident slab size in both
-        # precisions, and at M = 3104 the f64 solve pulls each x_p
+        # TRSMs: M = 1096 is beyond the cluster form's resident slab size
+        # in both precisions; from M = 544 (bwd), 672 (f64 fwd) and 1152
+        # (f32 fwd) one matrix takes the separator form
         ("chol_batched", 55, 192, None, (), both, timed32),
         ("chol_batched", 55, 192, None, (5, 100, 191), both, ()),
         ("chol_batched", 1, 488, None, (), both, both),
@@ -718,6 +729,24 @@ def _check_kernels(dev):
         ("trsm_lower_batched", 1, 8, 8, (), both, both),
         ("trsm_lower_t_batched", 1, 384, 8, (), both, both),
         ("trsm_lower_t_batched", 1, 8, 8, (), both, both),
+        # the TRSM forms' crossovers (plan_trsm: separator_from and
+        # columns_first), each side, and the separator form with frozen
+        # pivots, at K = 2 and beyond the cluster form's old cap (f32 12288)
+        ("trsm_lower_batched", 1, 1144, 8, (), (f32,), timed32),
+        ("trsm_lower_batched", 1, 1152, 8, (), (f32,), timed32),
+        ("trsm_lower_batched", 1, 664, 8, (), (f64,), timed64),
+        ("trsm_lower_batched", 1, 672, 8, (), (f64,), timed64),
+        ("trsm_lower_t_batched", 1, 536, 8, (), both, both),
+        ("trsm_lower_t_batched", 1, 544, 8, (), both, both),
+        ("trsm_lower_t_batched", 17, 320, 8, (), both, both),
+        ("trsm_lower_batched", 40, 320, 8, (), (f64,), ()),
+        ("trsm_lower_batched", 13, 192, 32, (), (f32,), timed32),
+        ("trsm_lower_batched", 32, 192, 16, (), (f32,), timed32),
+        ("trsm_lower_t_batched", 1, 3952, 8, (7, 2000, 3951), both, ()),
+        ("trsm_lower_batched", 2, 5344, 8, (), both, ()),
+        ("trsm_lower_t_batched", 2, 5344, 8, (), both, ()),
+        ("trsm_lower_t_batched", 1, 12296, 8, (), (f32,), timed32),
+        ("trsm_lower_t_batched", 40, 320, 176, (), (f64,), ()),
     ]
     main_shape = (1, 488, f32)
     plain = {"chol_batched": dk.chol_batched_plain,
@@ -764,6 +793,8 @@ def _check_kernels(dev):
                     "frozen": list(zero_rows), "max_abs_err": err, "rel_err": rel, "tol": tol}
             if name == "chol_batched":
                 info["form"] = dk.chol_form(dtype, K, M)
+            else:
+                info["form"] = dk.trsm_form(dtype, K, M, S, name == "trsm_lower_t_batched")
             if dtype in timed:
                 # 20 calls each, fewer where a call is long (the sphere
                 # separator, the plain Cholesky's ~150 launches per 8 columns)
@@ -771,12 +802,13 @@ def _check_kernels(dev):
                 info["ms"] = _time_ms(lambda: kern(*args), rk, 3 if rk == 20 else 1)
                 info["plain_ms"] = _time_ms(lambda: plain[name](*args), rp, 3 if rp == 20 else 1)
                 info["device_ms"], info["device_ms_source"] = _device_ms(
-                    lambda: kern(*args), rk, 3 if rk == 20 else 1, one_launch=True)
-                # (a plain call over 0.1 s is ~10^4-10^5 launches, whose
-                # trace takes 5-60 s to read: its CUDA-event time stands
-                # alone, except at the main path's shape, traced twice)
+                    lambda: kern(*args), rk, 3 if rk == 20 else 1)
+                # (a plain Cholesky over 0.1 s is ~10^4-10^5 launches,
+                # whose trace takes 5-60 s to read: its CUDA-event time
+                # stands alone, except at the main path's shape, traced
+                # twice; the plain TRSM, solve_triangular, is always traced)
                 info["plain_device_ms"], info["plain_device_ms_source"] = (None, None)
-                if rp >= 5 or (K, M, dtype) == main_shape:
+                if rp >= 5 or (K, M, dtype) == main_shape or name != "chol_batched":
                     info["plain_device_ms"], info["plain_device_ms_source"] = _device_ms(
                         lambda: plain[name](*args),
                         2 if name == "chol_batched" else max(2, rp), warmup=1)
@@ -803,6 +835,44 @@ def _check_kernels(dev):
             _line("kernels", finite and rel <= tol, time.perf_counter() - t0, **info)
             CHECKED.add((name, K, M, S, dt))
     return summary
+
+
+def _trsm_graph(dev) -> None:
+    """One separator-form TRSM (its workspace zeroed on the stream, then one
+    launch) captured in a CUDA graph at sphere-f64's separator shape and
+    replayed on two new right-hand sides, each held to the plain version
+    (f64: max |kernel - plain| over max |plain| within TOL_F64)."""
+    import torch
+
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(7)
+    M = 3952
+    G = torch.randn(1, M, M, device=dev, dtype=f64, generator=gen)
+    L = torch.linalg.cholesky(G @ G.transpose(1, 2) + M * torch.eye(M, device=dev, dtype=f64))
+    L = L.contiguous()
+    B = torch.randn(1, M, 8, device=dev, dtype=f64, generator=gen)
+    form = dk.trsm_form(f64, 1, M, 8, True)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        dk.trsm_lower_t_batched(L, B)  # the plan and the kernel's attributes, before capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        X = dk.trsm_lower_t_batched(L, B)
+    rels = []
+    for _ in range(2):
+        B.copy_(torch.randn(1, M, 8, device=dev, dtype=f64, generator=gen))
+        graph.replay()
+        ref = dk.trsm_lower_t_batched_plain(L, B)
+        torch.cuda.synchronize()
+        rels.append(float((X - ref).abs().max() / ref.abs().max()))
+    ok = form == "separator" and bool(torch.isfinite(X).all()) and max(rels) < TOL_F64
+    _line("trsm-graph", ok, time.perf_counter() - t0, kernel="trsm_lower_t_batched",
+          shape=[1, M, 8], dtype="float64", form=form, rel_err=rels, tol=TOL_F64)
 
 
 # pose vertex type -> its state width
@@ -1543,6 +1613,7 @@ def main(kernels_only: bool = False) -> int:
 
     # 3. kernels against their plain versions
     summary = _check_kernels(dev)
+    _trsm_graph(dev)
     if kernels_only:
         _kernel_bench(summary)
         print(json.dumps({"seconds": time.perf_counter() - T_START,

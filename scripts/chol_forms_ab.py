@@ -125,7 +125,7 @@ def main() -> int:
 
     def dev_ms(fn):
         r = cs._reps(fn, 0.25)
-        return cs._device_ms(fn, r, 1, one_launch=True)[0]
+        return cs._device_ms(fn, r, 1)[0]
 
     # 1. every form against the plain version
     for K, M, zero in ((2, 296, ()), (3, 320, (5, 200, 319)), (2, 488, ()), (1, 1000, (7, 999)),

@@ -4,9 +4,10 @@
 // slampp_tpu/ops/dense_kernels.py, all of which ran through _batched_call
 // (pl.pallas_call at dense_kernels.py:286):
 //
-//   chol_kernel             <- _chol_kernel      (dense_kernels.py:184), chol_batched
-//   trsm_kernel<T, false>   <- _trsm_fwd_kernel  (dense_kernels.py:215), trsm_lower_batched
-//   trsm_kernel<T, true>    <- _trsm_bwd_kernel  (dense_kernels.py:236), trsm_lower_t_batched
+//   chol_kernel, chol_big_kernel       <- _chol_kernel      (dense_kernels.py:184), chol_batched
+//   trsm_kernel, trsm_sep_kernel,
+//     trsm_cols_kernel <T, false, ...> <- _trsm_fwd_kernel  (dense_kernels.py:215), trsm_lower_batched
+//   the same <T, true, ...>            <- _trsm_bwd_kernel  (dense_kernels.py:236), trsm_lower_t_batched
 //
 // Each computes what its TPU kernel computes, not a block-by-block copy: the
 // TPU kernels walk 8-wide column panels through one-hot selection matmuls
@@ -93,77 +94,121 @@
 // No tensor cores (TF32 would miss the f32 tolerance; f64 DMMA is queued
 // work).
 
-// Triangular solves: a cluster-resident wavefront.  The first design (one
-// CTA per matrix and 8-column group of B, 32-row panels in order) was bound
-// by latency, not by FLOPs or bytes: at the separator shape (1, 488, 8) it
-// ran one CTA on one of 132 SMs through 16 panels, each a global load of the
-// diagonal block, a 32-step shuffle-and-divide substitution, and a trailing
-// update that read L from L2 once per FMA (a loop of runtime length, 8
-// warps to hide it) with x making a round trip through global memory; about
-// 1.9 MFLOP in ~0.2 ms, slower than torch.linalg.solve_triangular.  This
-// design spreads the solve over a thread-block cluster and keeps everything
-// the serial chain touches on chip:
+// Triangular solves: three forms, chosen on the host per (device, K, M, S,
+// dtype, direction) and kept (plan_trsm; dk.trsm_form names the choice).
+// X = L^-1 B walks L's 32-row blocks down (fwd), X = L^-T B up (bwd): block
+// i needs x of every block before it in that wavefront order, so each form
+// is bound by that chain of P = ceil(M / 32) dependent steps unless there
+// are enough independent chains (matrices, column groups) to fill the card.
+// Each form's critical step avoids the 32 dependent shuffle-and-divide steps
+// of a substitution where it can: x_i = D_i^-1 r_i from the diagonal block
+// inverted off the chain (invert_diag: the warp substitution applied to the
+// identity, multiplying by the pivots' reciprocals; a frozen pivot, L_jj =
+// 1e10, gives 1e-10 entries and no NaN).
 //
-//  * One cluster per matrix and G 8-column groups of B, of C = min(ceil(M /
-//    32), 16) CTAs (16 is a non-portable cluster size).  CTA r owns the
-//    panels p = r, r + C, ... (one panel each for M <= 512).  C = 1 (the
-//    same code with no remote traffic) was slower on an H100 at every shape
-//    of the path, the batched ones included, so C is not lowered for them.
-//    G is 1 unless the grid would take more waves of clusters than the card
-//    holds at once (the dense frames' (55, 192, 48)): then a cluster takes
-//    several groups (G = 3 or 6), so that one slab load and one
-//    wavefront serve them all (plan_trsm; the plan of each shape is made
-//    once and kept).
-//  * Each CTA holds its panels' slab of L in shared memory: the forward
-//    solve needs the row slab (rows of panel p, columns [0, end of p)); the
-//    transposed solve needs the column slab (columns of panel p, rows
-//    [start of p, M)), i.e. the rows of L^T, which it reads transposed in
-//    place.  Warp 0 loads the slabs with cp.async.bulk (one copy per row
-//    segment, no tensor map) on mbarriers, in the order the wavefront
-//    consumes them, so the load overlaps the solve: the diagonal block
-//    first, then (fwd) the rest of each row in one copy, or (bwd) one
-//    32-row chunk per panel.  The CTA arrives on the cluster barrier before
-//    the load and waits on it only before the wavefront, so the barrier's
-//    ~1 us overlaps the load and the inversion.
-//  * Off the critical path, every CTA inverts its own 32 x 32 diagonal
-//    blocks in shared memory (the warp substitution applied to the identity,
-//    multiplying by the pivots' reciprocals, four columns per warp at once;
-//    frozen pivots stay frozen: L_jj = 1e10 gives a 1e-10 entry).  The
-//    panel's critical step is then x_p = D_p^-1 r_p (fwd) or D_p^-T r_p
-//    (bwd), a 32 x 32 by 32 x 8G product from shared memory, in place of 32
-//    dependent shuffle-and-divide steps.  The explicit inverse meets the f64
-//    tolerance (1e-10 relative against the plain version, rehearsed on the
-//    CPU in tests/test_torch_dense_kernels.py), so it is kept.
-//  * The wavefront (fwd runs down, bwd up): the owner of panel p forms x_p
-//    from its accumulated rhs into its own slot p and pushes the slot
-//    through distributed shared memory into slot p of every other CTA of
-//    the cluster, with one bulk copy per CTA (cp.async.bulk shared::cta ->
-//    shared::cluster, issued by C - 1 threads at once) that completes on
-//    that CTA's per-panel mbarrier.  (Per-thread st.async stores in place of
-//    the copies, C - 1 per thread and column group, were ~10% slower at
-//    (1, 488, 8) on an H100.)  Each CTA waits on its own barrier and
-//    subtracts L_ip x_p from the rhs of each panel it owns, in parallel with
-//    the others.  With one panel per CTA the owner of p + 1 applies x_p to
-//    its own rows only, so the chain waits on that one update (look-ahead).
-//    x never goes back to global memory before the end; a final
+// Cluster form (trsm_kernel): one thread-block cluster of C = min(
+// ceil(M / 32), 16) CTAs per matrix and G 8-column groups of B, L's slabs
+// resident in the CTAs' shared memory, x_p pushed to every CTA through
+// distributed shared memory.  Bound by the chain's ~1.5 us a step on at
+// most 16 SMs: it wins where the chain is short and every slab is resident,
+// (1, 488, 8) in 0.025 ms against solve_triangular's 0.18, and the part
+// frames (K, 192-320, 8).  Details:
+//
+//  * CTA r owns the panels p = r, r + C, ... (one panel each for M <= 512).
+//    C = 1 was slower at every shape of the path.  G is 1 unless the grid
+//    would take more waves of clusters than the card holds at once: then a
+//    cluster takes several groups (G = 3 or 6), one slab load and wavefront
+//    serving them all.
+//  * Each CTA holds its panels' slab of L in shared memory: fwd the row slab
+//    (rows of panel p, columns [0, end of p)), bwd the column slab (columns
+//    of panel p, rows [start of p, M)), read transposed in place.  Warp 0
+//    loads the slabs with cp.async.bulk (one copy per row segment) on
+//    mbarriers, in the order the wavefront consumes them, so the load
+//    overlaps the solve.  The CTA arrives on the cluster barrier before the
+//    load and waits on it only before the wavefront.
+//  * The wavefront: the owner of panel p forms x_p into its slot p and
+//    copies the slot into slot p of every other CTA (cp.async.bulk
+//    shared::cta -> shared::cluster, completing on that CTA's per-panel
+//    mbarrier); each CTA subtracts L_ip x_p from the rhs of each panel it
+//    owns.  With one panel per CTA the owner of p + 1 applies x_p to its own
+//    rows only, so the chain waits on that one update.  A final
 //    cluster.sync() keeps every CTA's shared memory alive while copies from
 //    it may be in flight.
-//  * Beyond the resident size a CTA whose slabs do not all fit in shared
-//    memory (227 KB opt-in) reads the panels it lacks from global memory at
-//    the point of use, in the same wavefront.  With one panel per CTA every
-//    slab fits; with G = 1 the branch starts at M = 608 (fwd) / 584 (bwd) in
-//    f64 and M = 1000 (fwd) / 928 (bwd) in f32 (the least multiple of 8 at
-//    which a CTA of a 16-CTA cluster leaves a panel in global memory).
-//  * Where the x tiles of all P panels no longer fit in every CTA (G = 1:
-//    M > 2560 in f64, M > 5120 in f32), each CTA keeps only the x of its own
-//    panels, and x_p is pulled instead: a cluster.sync() after the owner
-//    forms it, then every other CTA copies it into a staging tile through
-//    distributed shared memory.  Shared memory then grows with the panels
-//    per CTA only, and the solve takes M up to 7680 (f64) / 12288 (f32) on a
-//    227 KB opt-in; beyond that no plan fits and the launch returns
-//    cudaErrorInvalidValue.
-//  * No tensor cores: the products are 32 x 32 by 32 x 8 and latency-bound,
-//    and TF32 would miss the f32 residual tolerance.
+//  * A CTA whose slabs do not all fit in shared memory (227 KB opt-in) reads
+//    the panels it lacks from global memory at the point of use (with G = 1
+//    from M = 1000 fwd in f32, 608 in f64).  Every CTA must hold all P x
+//    tiles: where they do not fit (f32 M > 5120, f64 M > 2560) the form has
+//    no plan: the separator form takes those shapes, and is faster there
+//    (pulling each x_p after a cluster barrier took 10.6 ms at (1, 5344, 8)
+//    f32 bwd, 5.7x solve_triangular).
+//
+// Separator form (trsm_sep_kernel): the separators, one or two
+// matrices of M ~500 to 12,000 and more, S <= 8.  Bound by the chain: the
+// bytes (the lower triangle once, 57 MB at (1, 5344) f32: 0.017 ms at 3.35
+// TB/s) are read by every SM in parallel, ahead of the chain, so what is
+// left is P steps of a flag's round trip through L2 and two 32 x 32 by 32 x
+// 8 products: 2.2 us a step, (1, 5344, 8) f32 in 0.375 ms against
+// solve_triangular's 1.7-2.2 (the cluster form: 2.3 fwd, 10.6 bwd).  A
+// persistent grid (as many CTAs as the card holds at once) takes the 32-row
+// blocks of all chains (matrix, 8-column group) from a ticket counter in
+// wavefront order; see trsm_sep_kernel.  x_p goes to X in global memory
+// followed by a flag (release); consumers poll with acquire and read x_p
+// past the L1.  No cooperative launch and no co-residency needed: a CTA
+// waits only on blocks whose tickets came before its own, held by CTAs that
+// run already, so the launch is legal inside a CUDA graph (chip_smoke.py
+// replays one).  Every poll traps after kPollLimit polls, so a hang becomes
+// a launch error.  No cap on M.  The workspace (ticket and flags) comes from
+// the wrapper and is zeroed on the stream by the entry point.
+//
+// Column-tiled form (trsm_cols_kernel): the dense frames' wide
+// right-hand sides, W = L^-1 [U | g] at (11-157, 192-320, 150-960).  Bound
+// by FLOPs (M^2 S / 2 per matrix; (157, 192, 408) f32: 0.035 ms at 67
+// TFLOP/s) or bytes; what held the cluster form back there was a design for
+// latency, K ceil(S / 8G) clusters each running the whole chain with
+// cross-CTA barriers for 8G columns, and one FMA per shared load.  Here one
+// CTA per (matrix, 32 columns), no cluster: 240 CTAs at (40, 320, 176).  It
+// keeps its 32 columns of x for all M rows in shared memory, so the chain
+// stays inside the CTA, left-looking: r_i = B_i - sum_p L_ip x_p over the
+// solved blocks, accumulated in registers, then x_i = D_i^-1 r_i by
+// substitution.  Each 32 x 32 block of L is read once through a ring of
+// cp.async tiles.  f64 products on the tensor cores (mma.sync m8n8k4 f64,
+// 67 TFLOP/s against 34 outside them); f32 products as FFMA, a thread's row
+// times four columns, 4 FMAs per 16-byte shared load of x (TF32 would miss
+// the f32 residual tolerance).  (40, 320, 176) f64 0.105 ms (the cluster
+// form 1.26, solve_triangular 0.27); (157, 192, 408) f32 0.28 (0.64, 0.54).
+//
+// The plan (plan_trsm): the column-tiled form where it fits (f64 M <= 800,
+// f32 M <= 1472) and has K ceil(S / 32) >= 32 CTAs with S > 8, or one CTA
+// per SM with S <= 8; else, for S <= 8, the separator form from M =
+// separator_from(K); else the cluster form where it has a plan; else the
+// separator form.  Crossovers, all forms side by side on an H100
+// (scripts/trsm_forms_ab.py, device ms, PERF.md):
+//  * fwd f32 from M = 1152: (1, 1096, 8) cluster 0.077 / separator 0.081,
+//    (1, 1472, 8) 0.133 / 0.105;
+//  * fwd f64 from 672: (1, 584, 8) 0.041 / 0.049, (1, 768, 8) 0.071 / 0.062;
+//    from 320 at K >= 40: (40, 320, 8) 0.049 / 0.039, (17, 320, 8) 0.025 /
+//    0.033;
+//  * bwd from 544 in both dtypes: (1, 488, 8) f32 0.031 / 0.038, (1, 584, 8)
+//    0.050 / 0.044; from 320 at K >= 40 (f32) and K >= 17 (f64): (40, 320,
+//    8) f32 0.048 / 0.033, (17, 320, 8) f32 0.024 / 0.030, f64 0.070 /
+//    0.034;
+//  * column-tiled: (55, 192, 16) f32 0.024 cluster / 0.023 columns, (13,
+//    192, 32) 0.017 / 0.024, (1, 488, 48) 0.025 / 0.124; at S = 8 (157, 192,
+//    8) f64 0.057 / 0.049, (55, 192, 8) f32 0.017 / 0.023.
+//
+// Accuracy (the bounds: f64 max |kernel - plain| / max |plain| < 1e-10, f32
+// relative residual < 1e-4, frozen pivots included).  The separator form
+// sums in the cluster form's order (each entry of r_i over the blocks in
+// wavefront order, each block's 32 products in order; x_i = D_i^-1 r_i from
+// zero): where both run, the card gives the same bits.  The column-tiled
+// form sums the same products per block (in f64 in DMMA depth steps of 4)
+// and solves the diagonal by substitution with the pivots' reciprocals:
+// both are backward stable blocked substitutions, each entry's error a
+// small multiple of M u |L| |x|, as for the plain version, so the two stay
+// within the condition number times a few ulps of each other.  On the card
+// f64 agrees to 1.1e-14 and f32 residuals stay below 6e-6 at every checked
+// shape up to M = 12,296 (tests/test_torch_dense_kernels.py rehearses each
+// form's order on the CPU against the JAX package at 1e-10).
 //
 // Plain C interface for ctypes (slampp_tpu_torch/ops/_cuda.py): every entry
 // point launches on the given stream, allocates nothing, does not
@@ -224,38 +269,34 @@ __host__ __device__ __forceinline__ size_t slab_bytes(int M, int p) {
 // published panel at the same offset.  Byte offsets.
 struct TrsmPlan {
   int P, C, nown, G;  // panels, CTAs per cluster, panels per CTA at most, column groups
-  int push;           // 1: x_p pushed into slot p of every CTA; 0: pulled (trsm_kernel step 5)
   int chunk_bars, ready_bars, slab_off, acc, xr, dop, slab;
   unsigned slab_cap;  // bytes of shared memory left for slabs
 };
 
-// The plan with every x_p pushed into every CTA (P x tiles) where that fixed
-// part fits in smem_limit, else the one in which each CTA keeps the x of its
-// own panels and pulls the others' (nown + 1 x tiles).
+// The fixed part holds every x_p in every CTA (P x tiles); where it does not
+// fit in smem_limit (slab > smem_limit) the cluster form has no plan.
 template <typename T>
-TrsmPlan make_plan(int M, int C, int G, size_t smem_limit, bool push = true) {
+TrsmPlan make_plan(int M, int C, int G, size_t smem_limit) {
   TrsmPlan q;
   q.P = (M + kNB - 1) / kNB;
   q.C = C;
   q.nown = (q.P + C - 1) / C;
   q.G = G;
-  q.push = push;
   const size_t tile = static_cast<size_t>(kNB) * G * kTrsmCols * sizeof(T);
   size_t off = 0;
   q.chunk_bars = static_cast<int>(off);  // [nown][P]: slab chunk arrived
   off += static_cast<size_t>(q.nown) * q.P * 8;
-  q.ready_bars = static_cast<int>(off);  // [P] if push: x_p has arrived in xr
-  off += push ? static_cast<size_t>(q.P) * 8 : 0;
+  q.ready_bars = static_cast<int>(off);  // [P]: x_p has arrived in xr
+  off += static_cast<size_t>(q.P) * 8;
   q.slab_off = static_cast<int>(off);  // [nown]: byte offset of each slab, -1 = global
   off = align_up(off + static_cast<size_t>(q.nown) * 4, 16);
   q.acc = static_cast<int>(off);  // [nown][kNB][8G]: rhs, then residual
   off += q.nown * tile;
-  q.xr = static_cast<int>(off);  // x tiles [kNB][8G]: [P] if push, else [nown + 1]
-  off += (push ? q.P : q.nown + 1) * tile;
+  q.xr = static_cast<int>(off);  // x tiles [P][kNB][8G]
+  off += q.P * tile;
   q.dop = static_cast<int>(off);  // [nown][kNB][kLdd]: D_p^-1 (fwd) or D_p^-T (bwd)
   off += static_cast<size_t>(q.nown) * kNB * kLdd * sizeof(T);
   q.slab = static_cast<int>(align_up(off, 128));
-  if (push && static_cast<size_t>(q.slab) > smem_limit) return make_plan<T>(M, C, G, smem_limit, false);
   q.slab_cap = smem_limit > static_cast<size_t>(q.slab)
                    ? static_cast<unsigned>(smem_limit - q.slab) : 0u;
   return q;
@@ -401,10 +442,8 @@ __device__ __forceinline__ void apply_block(const T* a, int lda, int wp, int ti,
 // top of the file.  Thread tid owns row ti = tid / kTrsmCols and columns
 // ts + 8g (ts = tid % kTrsmCols, g < kG) of every rhs tile ([kNB][8 kG]).
 // kG is a template parameter so that the loops over it unroll without
-// predicates (with a runtime G the steps were 2.5x longer at (1, 488, 8));
-// kPush (the plan's push) too, since the pull branch's code in the same
-// kernel made the push steps ~10% longer.
-template <typename T, bool kBwd, int kG, bool kPush>
+// predicates (with a runtime G the steps were 2.5x longer at (1, 488, 8)).
+template <typename T, bool kBwd, int kG>
 __global__ void __launch_bounds__(kTrsmThreads)
     trsm_kernel(const T* __restrict__ L, const T* __restrict__ B, T* __restrict__ X, int M,
                 int S, TrsmPlan q) {
@@ -441,7 +480,7 @@ __global__ void __launch_bounds__(kTrsmThreads)
   if (tid == 0) {
     place_slabs<T, kBwd>(q, M, rank, slab_off);
     for (int i = 0; i < q.nown * q.P; ++i) mbar_init(&chunk_bars[i], 1);
-    for (int i = 0; kPush && i < q.P; ++i) {
+    for (int i = 0; i < q.P; ++i) {
       mbar_init(&ready[i], 1);
       mbar_expect_tx(&ready[i], tile * sizeof(T));
     }
@@ -512,20 +551,16 @@ __global__ void __launch_bounds__(kTrsmThreads)
   __syncthreads();
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 
-  // 5. the wavefront.  The owner of p forms x_p = dop_p r_p in its own slot
-  //    for p.  push: it copies the slot into slot p of every other CTA, one
-  //    bulk copy each, completing on that CTA's ready[p].  pull (x of every
-  //    panel does not fit in each CTA): after a cluster barrier, every other
-  //    CTA copies the owner's slot into its own staging tile through
-  //    distributed shared memory.  Each CTA then subtracts the block (pi, p)
-  //    times x_p from the residual of every panel pi it owns that the
-  //    wavefront has not reached.
-  T* stage = xr + q.nown * tile;  // pull: the x_p of another CTA
+  // 5. the wavefront.  The owner of p forms x_p = dop_p r_p in slot p and
+  //    copies the slot into slot p of every other CTA, one bulk copy each,
+  //    completing on that CTA's ready[p].  Each CTA then subtracts the block
+  //    (pi, p) times x_p from the residual of every panel pi it owns that
+  //    the wavefront has not reached.
   for (int step = 0; step < q.P; ++step) {
     const int p = kBwd ? q.P - 1 - step : step;
     const int lp = p / q.C;  // p's slot in its owner's tiles
     const int owner = p % q.C;
-    T* slot = xr + (kPush ? p : lp) * tile;
+    const T* slot = xr + p * tile;
     if (rank == owner) {
       const T* o = dop + lp * kNB * kLdd + ti * kLdd;
       const T* r = acc + lp * tile + ts;
@@ -539,28 +574,16 @@ __global__ void __launch_bounds__(kTrsmThreads)
         for (int g = 0; g < kG; ++g) x[g] += oc * r[c * cols + g * kTrsmCols];
       }
 #pragma unroll
-      for (int g = 0; g < kG; ++g) slot[own + g * kTrsmCols] = x[g];
-      if (kPush) {
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        __syncthreads();
-        // the copies leave one after another (~30 ns each): the owner of the
-        // next panel in wavefront order gets the first
-        if (tid < q.C - 1)
-          bulk_s2cluster(slot, tile * sizeof(T), &ready[p],
-                         (rank + (kBwd ? q.C - 1 - tid : 1 + tid)) % q.C);
-      }
-    } else if (kPush) {
+      for (int g = 0; g < kG; ++g) xr[p * tile + own + g * kTrsmCols] = x[g];
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      // the copies leave one after another (~30 ns each): the owner of the
+      // next panel in wavefront order gets the first
+      if (tid < q.C - 1)
+        bulk_s2cluster(slot, tile * sizeof(T), &ready[p],
+                       (rank + (kBwd ? q.C - 1 - tid : 1 + tid)) % q.C);
+    } else {
       mbar_wait(&ready[p]);
-    }
-    if constexpr (!kPush) {
-      // the barrier also ends this CTA's reads of stage in the step before
-      cluster.sync();
-      if (rank != owner) {
-        const T* src = cluster.map_shared_rank(slot, owner);
-        for (int i = tid; i < tile; i += kTrsmThreads) stage[i] = src[i];
-        __syncthreads();
-        slot = stage;
-      }
     }
     const T* x = slot + ts;
     const int wp = panel_width(M, p);
@@ -596,7 +619,7 @@ __global__ void __launch_bounds__(kTrsmThreads)
     const int p = rank + li * q.C;
     if (p < q.P && ti < panel_width(M, p))
       for (int j = ts; j < nc; j += kTrsmCols)
-        X[(k * M + p * kNB + ti) * S + c0 + j] = xr[(kPush ? p : li) * tile + own - ts + j];
+        X[(k * M + p * kNB + ti) * S + c0 + j] = xr[p * tile + own - ts + j];
   }
   cluster.sync();
 }
@@ -1208,6 +1231,340 @@ __global__ void __launch_bounds__(kBigThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// triangular solves: the separator form and the column-tiled form
+// ---------------------------------------------------------------------------
+
+constexpr int kTileThreads = 256;  // both forms: 8 warps
+constexpr int kSepStages = 8;      // separator form: tiles of L in flight per CTA
+constexpr int kColTile = 32;       // column-tiled form: rhs columns per CTA
+constexpr unsigned kPollLimit = 1u << 26;
+
+// Column-tiled form: tiles of L in flight per CTA, and the layout of its x
+// rows.  f32: rows of 32 + 4 (16-byte aligned rows for float4 loads).  f64:
+// rows of 32 with no pad and the two halves of a row swapped in odd rows,
+// so that the four rows a DMMA B fragment reads fall on both bank halves,
+// and a ring of 3 tiles: the x rows of M = 320 and the ring (108 KB) leave
+// room for two CTAs per SM (f64 (40, 320, 176): 0.130 ms with 4 tiles, one
+// CTA per SM and 8 more bytes a row; 0.109 with two CTAs; H100, PERF.md).
+// The ring's depth is a constant: chosen per shape at run time (the
+// deepest that keeps the occupancy) it made every shape 5-25% slower.
+template <typename T>
+constexpr int kColStages = sizeof(T) == 8 ? 3 : 4;
+template <typename T>
+constexpr int kLdx = kColTile + (sizeof(T) == 8 ? 0 : 4);
+template <typename T>
+__device__ __forceinline__ int xoff(int r, int c) {
+  return r * kLdx<T> + (sizeof(T) == 8 ? c ^ ((r & 1) << 3) : c);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// The 32 x 32 block of the row-major (M, M) matrix l at (row0, col0) into
+// s ([kNB][kLdv]) by 16-byte asynchronous copies (cp.async, one or two per
+// thread of 256); rows and columns at or past M are zero-filled (M is a
+// multiple of 8, so a copy never straddles M).  The caller commits.
+template <typename T>
+__device__ __forceinline__ void copy_tile(T* s, const T* l, int M, int row0, int col0) {
+  constexpr int kV = 16 / sizeof(T);
+  constexpr int kPerRow = kNB / kV;
+#pragma unroll
+  for (int q = threadIdx.x; q < kNB * kPerRow; q += kTileThreads) {
+    const int r = q / kPerRow, c = (q % kPerRow) * kV;
+    const bool ok = row0 + r < M && col0 + c < M;
+    cp_async16(s + r * kLdv<T> + c, ok ? l + static_cast<size_t>(row0 + r) * M + col0 + c : l, ok);
+  }
+}
+
+// Separator form (trsm_sep_kernel): X = L^-1 B or L^-T B for K matrices of
+// any M, in chains of one matrix and one 8-column group of B, all chains'
+// 32-row blocks spread over every SM.  A CTA takes a block from the ticket
+// counter ws[0] in wavefront order (fwd: ascending, bwd: descending), so
+// the blocks it then waits on are held by CTAs that run already, and the
+// launch needs no co-residency.  For its block i it
+//  * streams the blocks of L it needs through a ring of kSepStages tiles in
+//    shared memory, in the order the wavefront publishes x: fwd the row
+//    blocks L_ip (p < i), bwd the column blocks L_pi (p > i), each row
+//    segment 128 or 256 contiguous bytes;
+//  * inverts D_i (invert_diag) while the first tiles arrive;
+//  * for each tile: warp 0 makes sure x_p is published (the flag of (chain,
+//    p) at ws[1 + chain * P + p], read with acquire; 32 flags per poll
+//    while catching up, then one lane spinning on the next, trapping after
+//    kPollLimit polls) and reads x_p from X past the L1 (ld.global.cg) into
+//    a double-buffered tile; all threads then subtract L_ip x_p (or
+//    L_pi^T x_p) from their entry of r_i, thread (ti, ts) summing over the
+//    tile's 32 columns in order;
+//  * forms x_i = D_i^-1 r_i (D_i^-T r_i), writes it to X and publishes it:
+//    CTA barrier, __threadfence, flag stored with release.
+template <typename T, bool kBwd>
+__global__ void __launch_bounds__(kTileThreads)
+    trsm_sep_kernel(const T* __restrict__ L, const T* __restrict__ B, T* X, int K, int M, int S,
+                    unsigned* ws) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);          // [kSepStages][kNB][kLdv]
+  T* dinv = ring + kSepStages * kNB * kLdv<T>;   // [kNB][kLdd]
+  T* xs = dinv + kNB * kLdd;                     // [2][kNB][kTrsmCols]: x_p
+  T* rs = xs + 2 * kNB * kTrsmCols;              // [kNB][kTrsmCols]: r_i
+  int* ticket = reinterpret_cast<int*>(rs + kNB * kTrsmCols);  // the block taken
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ti = tid / kTrsmCols, ts = tid % kTrsmCols;
+  const int P = (M + kNB - 1) / kNB;
+  const int G = (S + kTrsmCols - 1) / kTrsmCols;
+  const int chains = K * G;
+  int seq = 0;  // tiles this CTA has taken through the ring
+  for (;;) {
+    if (tid == 0) *ticket = static_cast<int>(atomicAdd(ws, 1u));
+    __syncthreads();
+    const int t = *ticket;
+    if (t >= chains * P) break;
+    const int chain = t % chains, step = t / chains;
+    const int k = chain / G, c0 = (chain % G) * kTrsmCols, nc = imin(kTrsmCols, S - c0);
+    const int i = kBwd ? P - 1 - step : step;
+    const int wi = panel_width(M, i);
+    const int ntiles = kBwd ? P - 1 - i : i;
+    const T* l = L + static_cast<size_t>(k) * M * M;
+    T* xk = X + static_cast<size_t>(k) * M * S + c0;
+    unsigned* flag = ws + 1 + static_cast<size_t>(chain) * P;
+    // tile j: fwd the block (i, j), bwd the block (P - 1 - j, i)
+    auto issue = [&](int j) {
+      if (j < ntiles) {
+        const int p = kBwd ? P - 1 - j : j;
+        copy_tile<T>(ring + ((seq + j) % kSepStages) * kNB * kLdv<T>, l, M,
+                     (kBwd ? p : i) * kNB, (kBwd ? i : p) * kNB);
+      }
+      cp_async_commit();
+    };
+    for (int j = 0; j < kSepStages - 1; ++j) issue(j);
+    T acc = (ti < wi && ts < nc)
+                ? B[(static_cast<size_t>(k) * M + i * kNB + ti) * S + c0 + ts] : T(0);
+    invert_diag<T, kBwd>(l + static_cast<size_t>(i * kNB) * M + i * kNB, M, wi, dinv);
+    int ready = kBwd ? P : 0;  // warp 0: x published for p < ready (fwd), p >= ready (bwd)
+    for (int j = 0; j < ntiles; ++j) {
+      const int p = kBwd ? P - 1 - j : j;
+      T* xb = xs + (j & 1) * kNB * kTrsmCols;
+      if (warp == 0) {
+        if (kBwd ? p < ready : p >= ready) {
+          const int q = kBwd ? p - lane : p + lane;
+          const bool mine = kBwd ? q > i : q < i;
+          const unsigned set = __ballot_sync(kFull, mine && ld_acquire(flag + q) != 0u);
+          int n = set == kFull ? 32 : __ffs(~set) - 1;  // published in a row from p
+          if (n == 0) {
+            if (lane == 0)
+              for (unsigned tries = 0; ld_acquire(flag + p) == 0u; ++tries)
+                if (tries > kPollLimit) __trap();
+            n = 1;
+          }
+          __syncwarp();
+          ready = kBwd ? p - n + 1 : p + n;
+        }
+        const int wp = panel_width(M, p);
+#pragma unroll
+        for (int e = lane; e < kNB * kTrsmCols; e += 32) {
+          const int r = e / kTrsmCols, c = e % kTrsmCols;
+          xb[e] = (r < wp && c < nc) ? __ldcg(xk + static_cast<size_t>(p * kNB + r) * S + c) : T(0);
+        }
+      }
+      cp_async_wait<kSepStages - 2>();
+      __syncthreads();  // tile j and x_p in place; every thread is past tile j - 1
+      issue(j + kSepStages - 1);
+      const T* a = ring + ((seq + j) % kSepStages) * kNB * kLdv<T>;
+#pragma unroll 8
+      for (int c = 0; c < kNB; ++c)
+        acc -= (kBwd ? a[c * kLdv<T> + ti] : a[ti * kLdv<T> + c]) * xb[c * kTrsmCols + ts];
+    }
+    seq += ntiles;
+    rs[tid] = acc;
+    __syncthreads();
+    T x = T(0);
+    const T* o = dinv + ti * kLdd;
+#pragma unroll 8
+    for (int c = 0; c < kNB; ++c) x += o[c] * rs[c * kTrsmCols + ts];
+    if (ti < wi && ts < nc) xk[static_cast<size_t>(i * kNB + ti) * S + ts] = x;
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();
+      st_release(flag + i, 1u);
+    }
+  }
+}
+
+// r -= A x_p over one tile for this thread's four entries of the r block:
+// row `row`, columns col[0..3] (fwd A = the tile, bwd A = its transpose).
+// f32: FFMA, a row of the tile read as 16-byte vectors (fwd) and x_p's four
+// columns as one; f64: DMMA (mma.sync m8n8k4), warp w the rows 8(w % 4) ..
+// + 7 and the columns 16(w / 4) .. + 15 of the block, as two 8 x 8 C
+// fragments: lane (g, t) = (lane / 4, lane % 4) holds rows g, columns 2t and
+// 2t + 1 of each.
+template <bool kBwd>
+__device__ __forceinline__ void tile_update(const float* a, const float* x, float* acc) {
+  const int row = threadIdx.x >> 3, cb = (threadIdx.x & 7) * 4;
+#pragma unroll
+  for (int c4 = 0; c4 < kNB; c4 += 4) {
+    float av[4];
+    if (kBwd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[e] = a[(c4 + e) * kLdv<float> + row];
+    } else {
+      unpack(*reinterpret_cast<const float4*>(a + row * kLdv<float> + c4), av);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float xv[4];
+      unpack(*reinterpret_cast<const float4*>(x + (c4 + e) * kLdx<float> + cb), xv);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] -= av[e] * xv[u];
+    }
+  }
+}
+
+__device__ __forceinline__ void dmma(double* c, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(c[0]), "+d"(c[1])
+               : "d"(a), "d"(b));
+}
+
+template <bool kBwd>
+__device__ __forceinline__ void tile_update(const double* a, const double* x, double* acc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m = 8 * (warp & 3) + g, n = 16 * (warp >> 2) + g;
+#pragma unroll
+  for (int k4 = 0; k4 < kNB; k4 += 4) {
+    const int kk = k4 + t;
+    const double av = kBwd ? a[kk * kLdv<double> + m] : a[m * kLdv<double> + kk];
+    dmma(acc, -av, x[xoff<double>(kk, n)]);
+    dmma(acc + 2, -av, x[xoff<double>(kk, n + 8)]);
+  }
+}
+
+// This thread's four entries of a 32 x 32 block in tile_update's layout:
+// their row and column.
+template <typename T>
+__device__ __forceinline__ int frag_row() {
+  if (sizeof(T) == 4) return threadIdx.x >> 3;
+  return 8 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+}
+template <typename T>
+__device__ __forceinline__ int frag_col(int u) {
+  if (sizeof(T) == 4) return (threadIdx.x & 7) * 4 + u;
+  return 16 * (threadIdx.x >> 7) + 8 * (u >> 1) + 2 * (threadIdx.x & 3) + (u & 1);
+}
+
+// x <- D^-1 x (fwd) or D^-T x (bwd) for the wp x wp lower block d ([kNB]
+// [kLdv]) and the 32 columns of x (32 rows at xoff) in place, by substitution:
+// warp w takes columns 4w .. 4w + 3, lane = row, one step per pivot (fwd
+// from the first, bwd from the last), each multiplying by the pivot's
+// reciprocal (a frozen pivot, L_jj = 1e10, gives entries of ~1e-10 x).
+template <typename T, bool kBwd>
+__device__ __forceinline__ void diag_solve(const T* d, int wp, T* x) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T rcp = lane < wp ? T(1) / d[lane * kLdv<T> + lane] : T(0);
+  T v[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) v[u] = x[xoff<T>(lane, 4 * warp + u)];
+#pragma unroll 4
+  for (int s = 0; s < wp; ++s) {
+    const int c = kBwd ? wp - 1 - s : s;
+    const T dr = __shfl_sync(kFull, rcp, c);
+    const T lr = kBwd ? (lane < c ? d[c * kLdv<T> + lane] : T(0))
+                      : (lane > c && lane < wp ? d[lane * kLdv<T> + c] : T(0));
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const T xv = __shfl_sync(kFull, v[u], c) * dr;
+      v[u] = (lane == c) ? xv : v[u] - lr * xv;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) x[xoff<T>(lane, 4 * warp + u)] = v[u];
+}
+
+// Column-tiled form (trsm_cols_kernel): one CTA per matrix and 32 columns
+// of B, no cluster, no communication between CTAs.  The CTA keeps its 32
+// columns of x for all M rows in shared memory and walks the row blocks in
+// wavefront order, left-looking: for block i, r_i = B_i - sum_p L_ip x_p
+// (bwd: L_pi^T x_p) over the solved blocks p in wavefront order, in
+// registers, then x_i = D_i^-1 r_i by substitution on the diagonal block.
+// Every block of the lower triangle is read once, in that order, through a
+// ring of kColStages tiles (cp.async).
+template <typename T, bool kBwd>
+__global__ void __launch_bounds__(kTileThreads)
+    trsm_cols_kernel(const T* __restrict__ L, const T* __restrict__ B, T* __restrict__ X, int M,
+                     int S) {
+  constexpr int kStages = kColStages<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);       // [kStages][kNB][kLdv]
+  T* xs = ring + kStages * kNB * kLdv<T>;     // [P * kNB] rows at xoff: r_i, then x_i
+  const int P = (M + kNB - 1) / kNB;
+  const int nct = (S + kColTile - 1) / kColTile;
+  const size_t k = blockIdx.x / nct;
+  const int c0 = (blockIdx.x % nct) * kColTile, nc = imin(kColTile, S - c0);
+  const T* l = L + k * M * M;
+  const int row = frag_row<T>();
+  // the tile stream: step s of the wavefront (block i), its solved blocks
+  // q < s in wavefront order, then the diagonal (q = s)
+  int is = 0, iq = 0;
+  auto issue = [&](int j) {
+    if (is < P) {
+      const int i = kBwd ? P - 1 - is : is, p = kBwd ? P - 1 - iq : iq;
+      copy_tile<T>(ring + (j % kStages) * kNB * kLdv<T>, l, M, (kBwd ? p : i) * kNB,
+                   (kBwd ? i : p) * kNB);
+      if (++iq > is) ++is, iq = 0;
+    }
+    cp_async_commit();
+  };
+  for (int j = 0; j < kStages - 1; ++j) issue(j);
+  int j = 0;
+  for (int s = 0; s < P; ++s) {
+    const int i = kBwd ? P - 1 - s : s;
+    const int ri = i * kNB + row;
+    T acc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      acc[u] = (ri < M && frag_col<T>(u) < nc) ? B[(k * M + ri) * S + c0 + frag_col<T>(u)] : T(0);
+    for (int q = 0; q <= s; ++q, ++j) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // tile j in place; every thread is past tile j - 1
+      issue(j + kStages - 1);
+      const T* a = ring + (j % kStages) * kNB * kLdv<T>;
+      if (q < s) {
+        const int p = kBwd ? P - 1 - q : q;
+        tile_update<kBwd>(a, xs + p * kNB * kLdx<T>, acc);
+      } else {
+        T* xi = xs + i * kNB * kLdx<T>;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) xi[xoff<T>(row, frag_col<T>(u))] = acc[u];
+        __syncthreads();
+        diag_solve<T, kBwd>(a, panel_width(M, i), xi);
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < M * nc; e += kTileThreads) {
+    const int r = e / nc, c = e - r * nc;
+    X[(k * M + r) * S + c0 + c] = xs[xoff<T>(r, c)];
+  }
+}
+
 int optin_smem(int* optin) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1341,9 +1698,9 @@ int resident_max_m(int* out) {
   return 0;
 }
 
-// The kernel of a plan.  A launch chooses G from kGroupChoices, and pulls
-// x_p only with G = 1 (at large M): each choice is one more kernel to build.
-// The port's right-hand sides have one group (S <= 8) or six (the dense
+// The cluster form's kernel for G column groups per cluster.  A launch
+// chooses G from kGroupChoices: each choice is one more kernel to build.  The
+// cluster form's right-hand sides have one group (S <= 8) or six (the dense
 // frames' S = 48), where G = 6 (f32) and G = 3 (f64) take the fewest waves;
 // G = 2 was never chosen there.
 template <typename T>
@@ -1352,35 +1709,25 @@ using TrsmKernel = void (*)(const T*, const T*, T*, int, int, TrsmPlan);
 constexpr int kGroupChoices[] = {1, 3, 6};
 
 template <typename T, bool kBwd>
-TrsmKernel<T> trsm_kernel_for(int G, bool push) {
-  if (!push) return trsm_kernel<T, kBwd, 1, false>;
+TrsmKernel<T> trsm_kernel_for(int G) {
   switch (G) {
-    case 1: return trsm_kernel<T, kBwd, 1, true>;
-    case 3: return trsm_kernel<T, kBwd, 3, true>;
-    default: return trsm_kernel<T, kBwd, 6, true>;
+    case 1: return trsm_kernel<T, kBwd, 1>;
+    case 3: return trsm_kernel<T, kBwd, 3>;
+    default: return trsm_kernel<T, kBwd, 6>;
   }
 }
 
-// A launch: the plan, its grid of CTAs and its dynamic shared memory.
+// The three forms; the numbers are those of dk.TRSM_FORMS.
+enum class TrsmForm { kCluster = 0, kSeparator = 1, kColumns = 2 };
+
+// A launch: the form, the cluster form's plan, the grid of CTAs and the
+// dynamic shared memory.
 struct TrsmLaunch {
+  TrsmForm form;
   TrsmPlan q;
   unsigned ctas;
   size_t smem;
 };
-
-template <typename T, bool kBwd>
-bool make_launch(const TrsmPlan& q, int K, int M, int S, TrsmLaunch* out) {
-  const int ncg = (S + kTrsmCols - 1) / kTrsmCols;
-  const long long ctas = static_cast<long long>(K) * ((ncg + q.G - 1) / q.G) * q.C;
-  if (ctas > 0x7fffffffLL) return false;
-  size_t used = 0;
-  for (int r = 0; r < q.C; ++r) {
-    const size_t u = place_slabs<T, kBwd>(q, M, r, nullptr);
-    used = u > used ? u : used;
-  }
-  *out = {q, static_cast<unsigned>(ctas), q.slab + used};
-  return true;
-}
 
 void set_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, const TrsmLaunch& l,
                 void* stream) {
@@ -1397,19 +1744,17 @@ void set_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, const TrsmLa
   cfg.numAttrs = 1;
 }
 
-// Launch plan on the current device, setting the kernels' attributes there.
-// For G column groups per cluster, the cluster size is C = min(ceil(M / 32),
-// 16), lowered while the card reports that no cluster of that size fits.  G
-// is the choice whose K x ceil(groups / G) clusters take the fewest waves of
-// the clusters the card holds at once (the least G among equals): more
-// groups per cluster share one slab load and wavefront where the grid would
-// not fit on the card at once, and cost shared memory (the x tiles grow with
-// G) and longer steps.  A plan that pulls x_p takes G = 1 only.
-// cudaErrorInvalidValue where no plan fits.
+// The cluster form's plan on the current device, setting the kernels'
+// attributes there.  For G column groups per cluster, the cluster size is C
+// = min(ceil(M / 32), 16), lowered while the card reports that no cluster of
+// that size fits.  G is the choice whose K x ceil(groups / G) clusters take
+// the fewest waves of the clusters the card holds at once (the least G among
+// equals): more groups per cluster share one slab load and wavefront where
+// the grid would not fit on the card at once, and cost shared memory (the x
+// tiles grow with G) and longer steps.  cudaErrorInvalidValue where no plan
+// fits: every CTA must hold the x tiles of all P panels.
 template <typename T, bool kBwd>
-int plan_trsm(int K, int M, int S, TrsmLaunch* out) {
-  int optin = 0;
-  if (int err = optin_smem(&optin)) return err;
+int plan_cluster(int K, int M, int S, int optin, TrsmLaunch* out) {
   const int ncg = (S + kTrsmCols - 1) / kTrsmCols;
   long long best = -1;  // waves of the plan in *out
   int prev = 0;         // clusters per matrix of the choice before
@@ -1418,12 +1763,21 @@ int plan_trsm(int K, int M, int S, TrsmLaunch* out) {
     if (per == prev) continue;          // a larger G for as many clusters
     prev = per;
     int active = 0;
-    TrsmLaunch t;
+    TrsmLaunch t{};
     for (int C = imin((M + kNB - 1) / kNB, kMaxCluster); C >= 1 && !active; --C) {
-      if (!make_launch<T, kBwd>(make_plan<T>(M, C, G, static_cast<size_t>(optin)), K, M, S, &t))
-        return static_cast<int>(cudaErrorInvalidConfiguration);
-      if (t.smem > static_cast<size_t>(optin) || (!t.q.push && G > 1)) continue;
-      auto kernel = trsm_kernel_for<T, kBwd>(G, t.q.push);
+      t.form = TrsmForm::kCluster;
+      t.q = make_plan<T>(M, C, G, static_cast<size_t>(optin));
+      const long long ctas = static_cast<long long>(K) * per * C;
+      if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+      t.ctas = static_cast<unsigned>(ctas);
+      size_t used = 0;
+      for (int r = 0; r < C; ++r) {
+        const size_t u = place_slabs<T, kBwd>(t.q, M, r, nullptr);
+        used = u > used ? u : used;
+      }
+      t.smem = t.q.slab + used;
+      if (t.smem > static_cast<size_t>(optin)) continue;
+      auto kernel = trsm_kernel_for<T, kBwd>(G);
       cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       if (err == cudaSuccess)
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
@@ -1444,34 +1798,145 @@ int plan_trsm(int K, int M, int S, TrsmLaunch* out) {
   return best < 0 ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }
 
-// Launches with the plan of (device, K, M, S), made on its first use and
-// kept: the occupancy queries and attribute calls cost microseconds of host
-// time, more than the launch itself.
+// Separator form: as many CTAs as the card holds at once, at most one per
+// (chain, block).
 template <typename T, bool kBwd>
-int launch_trsm(const void* L, const void* B, void* X, int K, int M, int S, void* stream) {
+int plan_separator(int K, int M, int S, int optin, TrsmLaunch* out) {
+  // no static shared memory: the opt-in bounds dynamic and static together
+  const size_t smem = sizeof(T) * (static_cast<size_t>(kSepStages) * kNB * kLdv<T> + kNB * kLdd +
+                                   3 * kNB * kTrsmCols) + 16;
+  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(K) * ((S + kTrsmCols - 1) / kTrsmCols) *
+                           ((M + kNB - 1) / kNB);
+  if (blocks >= 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(trsm_sep_kernel<T, kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trsm_sep_kernel<T, kBwd>,
+                                                        kTileThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long ctas = imin(static_cast<int>(blocks), sms * per_sm);
+  *out = {TrsmForm::kSeparator, {}, static_cast<unsigned>(ctas), smem};
+  return 0;
+}
+
+// Column-tiled form: one CTA per matrix and 32 columns; its x rows (M of
+// them) must fit in shared memory beside the ring (f64 M <= 800, f32 M <=
+// 1472 on a 227 KB opt-in).
+template <typename T, bool kBwd>
+int plan_columns(int K, int M, int S, int optin, TrsmLaunch* out) {
+  const int P = (M + kNB - 1) / kNB;
+  const size_t smem = sizeof(T) * (static_cast<size_t>(kColStages<T>) * kNB * kLdv<T> +
+                                   static_cast<size_t>(P) * kNB * kLdx<T>);
+  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ctas = static_cast<long long>(K) * ((S + kColTile - 1) / kColTile);
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (cudaError_t err = cudaFuncSetAttribute(trsm_cols_kernel<T, kBwd>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin))
+    return static_cast<int>(err);
+  *out = {TrsmForm::kColumns, {}, static_cast<unsigned>(ctas), smem};
+  return 0;
+}
+
+// The least M from which one column group (S <= 8) takes the separator
+// form, for K matrices; below it the cluster form.
+template <typename T, bool kBwd>
+int separator_from(int K) {
+  if (kBwd) return K >= (sizeof(T) == 4 ? 40 : 17) ? 320 : 544;
+  return sizeof(T) == 4 ? 1152 : (K >= 40 ? 320 : 672);
+}
+
+// Whether the column-tiled form is taken where it fits: K ceil(S / 32)
+// CTAs, at least 32 of them for more than one column group, at least one
+// per SM for one.
+bool columns_first(int K, int S, int sms) {
+  const long long ctas = static_cast<long long>(K) * ((S + kColTile - 1) / kColTile);
+  return ctas >= (S > kTrsmCols ? 32 : sms);
+}
+
+// The plan of (K, M, S) on the current device: the column-tiled form where
+// columns_first and its x rows fit; else, for one column group, the
+// separator form from separator_from(K); else the cluster form where every
+// CTA holds all x tiles; else the separator form, which takes any M that
+// memory holds.
+template <typename T, bool kBwd>
+int plan_trsm(int K, int M, int S, TrsmLaunch* out) {
+  int optin = 0;
+  if (int err = optin_smem(&optin)) return err;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (columns_first(K, S, sms) && plan_columns<T, kBwd>(K, M, S, optin, out) == 0) return 0;
+  if (S <= kTrsmCols && M >= separator_from<T, kBwd>(K))
+    return plan_separator<T, kBwd>(K, M, S, optin, out);
+  const int cl = plan_cluster<T, kBwd>(K, M, S, optin, out);
+  if (cl != static_cast<int>(cudaErrorInvalidValue)) return cl;
+  return plan_separator<T, kBwd>(K, M, S, optin, out);
+}
+
+// The plan of (device, K, M, S), made on its first use and kept: the
+// occupancy queries and attribute calls cost microseconds of host time, more
+// than the launch itself.
+template <typename T, bool kBwd>
+int trsm_launch_of(int K, int M, int S, TrsmLaunch* l) {
   static std::mutex mu;
   static std::map<std::array<int, 4>, TrsmLaunch> plans;
   int dev = 0;
   if (cudaError_t err = cudaGetDevice(&dev)) return static_cast<int>(err);
-  TrsmLaunch l;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    const std::array<int, 4> key = {dev, K, M, S};
-    auto it = plans.find(key);
-    if (it == plans.end()) {
-      if (int err = plan_trsm<T, kBwd>(K, M, S, &l)) return err;
-      it = plans.emplace(key, l).first;
-    }
-    l = it->second;
+  std::lock_guard<std::mutex> lock(mu);
+  const std::array<int, 4> key = {dev, K, M, S};
+  auto it = plans.find(key);
+  if (it == plans.end()) {
+    if (int err = plan_trsm<T, kBwd>(K, M, S, l)) return err;
+    it = plans.emplace(key, *l).first;
   }
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  set_config(cfg, attr, l, stream);
-  cudaError_t err =
-      cudaLaunchKernelEx(&cfg, trsm_kernel_for<T, kBwd>(l.q.G, l.q.push), static_cast<const T*>(L),
-                         static_cast<const T*>(B), static_cast<T*>(X), M, S, l.q);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  *l = it->second;
+  return 0;
+}
+
+// Launches the plan's form.  ws holds 1 + K ceil(S / 8) ceil(M / 32)
+// unsigned ints (the separator form's ticket counter and flags); the
+// separator form zeroes them on the stream first.
+template <typename T, bool kBwd>
+int launch_trsm(const void* L, const void* B, void* X, int K, int M, int S, void* ws,
+                void* stream) {
+  TrsmLaunch l;
+  if (int err = trsm_launch_of<T, kBwd>(K, M, S, &l)) return err;
+  const T* a = static_cast<const T*>(L);
+  const T* b = static_cast<const T*>(B);
+  T* x = static_cast<T*>(X);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l.form == TrsmForm::kSeparator) {
+    const size_t n = 1 + static_cast<size_t>(K) * ((S + kTrsmCols - 1) / kTrsmCols) *
+                             ((M + kNB - 1) / kNB);
+    if (cudaError_t err = cudaMemsetAsync(ws, 0, n * sizeof(unsigned), s))
+      return static_cast<int>(err);
+    trsm_sep_kernel<T, kBwd><<<l.ctas, kTileThreads, l.smem, s>>>(a, b, x, K, M, S,
+                                                                  static_cast<unsigned*>(ws));
+  } else if (l.form == TrsmForm::kColumns) {
+    trsm_cols_kernel<T, kBwd><<<l.ctas, kTileThreads, l.smem, s>>>(a, b, x, M, S);
+  } else {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    set_config(cfg, attr, l, stream);
+    if (cudaError_t err = cudaLaunchKernelEx(&cfg, trsm_kernel_for<T, kBwd>(l.q.G), a, b, x, M, S, l.q))
+      return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kBwd>
+int trsm_form(int K, int M, int S, int* out) {
+  TrsmLaunch l;
+  if (int err = trsm_launch_of<T, kBwd>(K, M, S, &l)) return err;
+  *out = static_cast<int>(l.form);
+  return 0;
 }
 
 }  // namespace
@@ -1484,17 +1949,25 @@ int slampp_chol_f32(const void* A, void* L, int K, int M, double clamp, void* st
 int slampp_chol_f64(const void* A, void* L, int K, int M, double clamp, void* stream) {
   return launch_chol<double>(A, L, K, M, clamp, stream);
 }
-int slampp_trsm_fwd_f32(const void* L, const void* B, void* X, int K, int M, int S, void* stream) {
-  return launch_trsm<float, false>(L, B, X, K, M, S, stream);
+int slampp_trsm_fwd_f32(const void* L, const void* B, void* X, int K, int M, int S,
+                         void* ws, void* stream) {
+  return launch_trsm<float, false>(L, B, X, K, M, S, ws, stream);
 }
-int slampp_trsm_fwd_f64(const void* L, const void* B, void* X, int K, int M, int S, void* stream) {
-  return launch_trsm<double, false>(L, B, X, K, M, S, stream);
+int slampp_trsm_fwd_f64(const void* L, const void* B, void* X, int K, int M, int S,
+                         void* ws, void* stream) {
+  return launch_trsm<double, false>(L, B, X, K, M, S, ws, stream);
 }
-int slampp_trsm_bwd_f32(const void* L, const void* B, void* X, int K, int M, int S, void* stream) {
-  return launch_trsm<float, true>(L, B, X, K, M, S, stream);
+int slampp_trsm_bwd_f32(const void* L, const void* B, void* X, int K, int M, int S,
+                         void* ws, void* stream) {
+  return launch_trsm<float, true>(L, B, X, K, M, S, ws, stream);
 }
-int slampp_trsm_bwd_f64(const void* L, const void* B, void* X, int K, int M, int S, void* stream) {
-  return launch_trsm<double, true>(L, B, X, K, M, S, stream);
+int slampp_trsm_bwd_f64(const void* L, const void* B, void* X, int K, int M, int S,
+                         void* ws, void* stream) {
+  return launch_trsm<double, true>(L, B, X, K, M, S, ws, stream);
+}
+int slampp_trsm_form(int f64, int bwd, int K, int M, int S, int* out) {
+  if (f64) return bwd ? trsm_form<double, true>(K, M, S, out) : trsm_form<double, false>(K, M, S, out);
+  return bwd ? trsm_form<float, true>(K, M, S, out) : trsm_form<float, false>(K, M, S, out);
 }
 int slampp_chol_resident_max(int f64, int* out) {
   return f64 ? resident_max_m<double>(out) : resident_max_m<float>(out);

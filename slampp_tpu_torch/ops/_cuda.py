@@ -83,12 +83,14 @@ def load() -> ctypes.CDLL:
                 fn.restype = i32
                 for kind in ("fwd", "bwd"):
                     fn = getattr(lib, f"slampp_trsm_{kind}_{dt}")
-                    fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+                    fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr]
                     fn.restype = i32
             lib.slampp_chol_resident_max.argtypes = [i32, ctypes.POINTER(i32)]
             lib.slampp_chol_resident_max.restype = i32
             lib.slampp_chol_form.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
             lib.slampp_chol_form.restype = i32
+            lib.slampp_trsm_form.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
+            lib.slampp_trsm_form.restype = i32
             lib.slampp_error_string.argtypes = [i32]
             lib.slampp_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -196,13 +196,36 @@ def chol_form(dtype: torch.dtype, K: int, M: int, device="cuda") -> str:
     return CHOL_FORMS[out.value]
 
 
+TRSM_FORMS = ("cluster", "separator", "columns")
+
+
+def trsm_form(dtype: torch.dtype, K: int, M: int, S: int, bwd: bool, device="cuda") -> str:
+    """The form the triangular-solve kernels take for K (M, M) matrices and
+    (K, M, S) right-hand sides of ``dtype`` on ``device``: "cluster" (a
+    thread-block cluster per matrix and column groups, L resident in shared
+    memory), "separator" (every SM on a wavefront of 32-row blocks through
+    global memory) or "columns" (a CTA per matrix and 32 columns), from the
+    kernels' own plan."""
+    from slampp_tpu_torch.ops import _cuda
+
+    lib = _cuda.load()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        _cuda.check(lib, lib.slampp_trsm_form(int(dtype == torch.float64), int(bool(bwd)), K, M, S,
+                                              ctypes.byref(out)), "trsm_form")
+    return TRSM_FORMS[out.value]
+
+
 def _trsm(name: str, kind: str, L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     sfx = _cuda_args(name, L, B)
     K, M, _ = L.shape
+    S = B.shape[2]
     out = torch.empty_like(B)
     if K:
-        _launch(name, f"slampp_trsm_{kind}_{sfx}", out, (K, M, B.shape[2]),
-                L.data_ptr(), B.data_ptr(), out.data_ptr(), K, M, B.shape[2])
+        # the separator form's ticket counter and per-(chain, block) flags
+        ws = torch.empty(1 + K * -(-S // 8) * -(-M // 32), dtype=torch.int32, device=B.device)
+        _launch(name, f"slampp_trsm_{kind}_{sfx}", out, (K, M, S),
+                L.data_ptr(), B.data_ptr(), out.data_ptr(), K, M, S, ws.data_ptr())
     return out
 
 

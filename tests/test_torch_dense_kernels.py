@@ -114,6 +114,124 @@ def test_wavefront_trsm_matches_jax(case, bwd):
     assert np.abs(X - ref).max() / np.abs(ref).max() < 1e-10
 
 
+# CPU rehearsals of the two newer TRSM forms' arithmetic (csrc/dense_kernels.cu),
+# in the order the kernels sum, on 32-row blocks (NB)
+NB = 32
+
+
+def _blocks(M, bwd):
+    """The row blocks (slices) in wavefront order: fwd ascending, bwd descending."""
+    bl = [slice(s, min(s + NB, M)) for s in range(0, M, NB)]
+    return bl[::-1] if bwd else bl
+
+
+def _op_block(L, bi, bp, bwd):
+    """Block (i, p) of the operator: L_ip (fwd) or L_pi^T (bwd)."""
+    return L[bp, bi].T if bwd else L[bi, bp]
+
+
+def _invert_diag(D, bwd):
+    """invert_diag: column j of D^-1 by substitution on e_j, multiplying by
+    the pivots' reciprocals; D^-T for bwd."""
+    wp = D.shape[0]
+    rcp = 1.0 / np.diag(D)
+    V = np.eye(wp)
+    for r in range(wp):
+        x = V[r] * rcp[r]
+        V[r + 1:] -= np.outer(D[r + 1:, r], x)
+        V[r] = x
+    return V.T if bwd else V
+
+
+def _sep_model(L, B, bwd):
+    """Separator form: per chain (matrix, 8-column group) and block i in
+    wavefront order, r_i = B_i minus each published block's product (each
+    entry summed over the tile's columns in order), then x_i = D_i^-1 r_i
+    (D_i^-T) through the explicit inverse, summed from zero."""
+    K, M, S = B.shape
+    X = np.zeros_like(B)
+    for k in range(K):
+        for c0 in range(0, S, 8):
+            cols = slice(c0, min(c0 + 8, S))
+            done = []
+            for bi in _blocks(M, bwd):
+                r = B[k, bi, cols].copy()
+                for bp in done:
+                    A = _op_block(L[k], bi, bp, bwd)
+                    for c in range(A.shape[1]):
+                        r -= np.outer(A[:, c], X[k, bp, cols][c])
+                O = _invert_diag(L[k, bi, bi], bwd)
+                x = np.zeros_like(r)
+                for c in range(O.shape[1]):
+                    x += np.outer(O[:, c], r[c])
+                X[k, bi, cols] = x
+                done.append(bi)
+    return X
+
+
+def _cols_model(L, B, bwd):
+    """Column-tiled form: per matrix and 32 columns, left-looking over the
+    blocks in wavefront order (r_i = B_i minus the solved blocks' products,
+    in order), then substitution on the diagonal block with the pivots'
+    reciprocals (fwd from the first pivot, bwd from the last)."""
+    K, M, S = B.shape
+    X = np.zeros_like(B)
+    for k in range(K):
+        for c0 in range(0, S, NB):
+            cols = slice(c0, min(c0 + NB, S))
+            done = []
+            for bi in _blocks(M, bwd):
+                v = B[k, bi, cols].copy()
+                for bp in done:
+                    A = _op_block(L[k], bi, bp, bwd)
+                    for c in range(A.shape[1]):
+                        v -= np.outer(A[:, c], X[k, bp, cols][c])
+                D = L[k, bi, bi]
+                rcp = 1.0 / np.diag(D)
+                for c in (range(D.shape[0] - 1, -1, -1) if bwd else range(D.shape[0])):
+                    x = v[c] * rcp[c]
+                    if bwd:
+                        v[:c] -= np.outer(D[c, :c], x)
+                    else:
+                        v[c + 1:] -= np.outer(D[c + 1:, c], x)
+                    v[c] = x
+                X[k, bi, cols] = v
+                done.append(bi)
+    return X
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("form,case", [
+    ("separator", "partial"), ("separator", "frozen"), ("separator", "S43"),
+    ("columns", "partial"), ("columns", "frozen"), ("columns", "S43")])
+def test_trsm_form_model_matches_jax(form, case, bwd):
+    """Each newer TRSM form's arithmetic, rehearsed in f64 in the order its
+    kernel sums, against the JAX package's trsm_lower_batched /
+    trsm_lower_t_batched (lax triangular_solve on the CPU): 1e-10 relative.
+    Cases: a partial last panel (M % 32 = 8), frozen pivots (L_jj = 1e10,
+    entries ~1e-10 and no NaN), S = 43 (not a multiple of 8 or 32)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from slampp_tpu.ops import dense_kernels as jdk
+
+    rng = np.random.default_rng(31)
+    if case == "frozen":
+        A, S = _frozen_case(rng, M=72, zero_rows=(3, 40, 70)), (8 if form == "separator" else 37)
+    elif case == "partial":
+        K, M, S = (1, 1000, 8) if form == "separator" else (2, 200, 40)
+        A = _spd(rng, K, M)
+    else:
+        A, S = _spd(rng, 2, 136), 43
+    L = dk.chol_batched(torch.from_numpy(A), clamp=1e-8).numpy()
+    B = rng.normal(size=(A.shape[0], A.shape[1], S))
+    jfn = jdk.trsm_lower_t_batched if bwd else jdk.trsm_lower_batched
+    ref = np.asarray(jfn(jnp.asarray(L), jnp.asarray(B)))
+    X = (_sep_model if form == "separator" else _cols_model)(L, B, bwd)
+    assert np.isfinite(X).all()
+    assert np.abs(X - ref).max() / np.abs(ref).max() < 1e-10
+    if case == "frozen":
+        assert np.abs(X[0, [3, 40, 70]]).max() < 1e-6 * np.abs(B).max()
+
+
 def test_cpu_dispatch_launches_no_kernel():
     dk.reset_launches()
     rng = np.random.default_rng(3)
@@ -319,31 +437,124 @@ def test_cuda_trsm_match_plain(cuda, dtype, bwd, K, M, S):
     assert dk.launches["trsm_lower_t_batched" if bwd else "trsm_lower_batched"] == 1
 
 
-def _device_chol(cuda, M, dtype):
-    """Cholesky factor of a well-conditioned (1, M, M) SPD matrix, made on
+def _device_chol(cuda, M, dtype, K=1):
+    """Cholesky factors of K well-conditioned (M, M) SPD matrices, made on
     the card (a large M would take seconds through numpy)."""
-    return torch.linalg.cholesky(_device_spd(cuda, M)).to(dtype).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(M + K - 1)  # K = 1: _device_spd's draws
+    G = torch.randn(K, M, M, device=cuda, dtype=torch.float64, generator=gen)
+    A = G @ G.transpose(1, 2) / M + torch.eye(M, device=cuda, dtype=torch.float64)
+    return torch.linalg.cholesky(A).to(dtype).contiguous()
 
 
-# M where each CTA no longer holds every x_p (f64 from 2568, f32 from 5128),
-# up to the largest M with a plan on a 227 KB opt-in (f64 7680, f32 12288)
+def _device_rhs(cuda, K, M, S, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    return torch.randn(K, M, S, device=cuda, dtype=torch.float64, generator=gen).to(dtype)
+
+
+# large M on the separator form, up to and beyond the largest M the cluster
+# form's plan took before it (f64 7680, f32 12288): the separator form has
+# no cap on M
 @pytest.mark.gpu
 @pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("dtype,M", [(torch.float64, 3104), (torch.float64, 7680),
                                      (torch.float32, 6336), (torch.float32, 12288)])
 def test_cuda_trsm_large_m_matches_plain(cuda, dtype, bwd, M):
-    L = _device_chol(cuda, M, dtype)
-    B = torch.randn(1, M, 8, device=cuda, dtype=torch.float64,
-                    generator=torch.Generator(device=cuda).manual_seed(1)).to(dtype)
-    _check_trsm(bwd, L, B)
+    _check_trsm(bwd, _device_chol(cuda, M, dtype), _device_rhs(cuda, 1, M, 8, dtype))
 
 
+# the first M beyond the cluster form's last plan (f64 7688, f32 12296)
+# used to raise; the separator form solves them like any other M
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,M", [(torch.float64, 7688), (torch.float32, 12296)])
 def test_cuda_trsm_beyond_largest_plan_raises(cuda, dtype, M):
-    L = torch.eye(M, device=cuda, dtype=dtype)[None]
-    with pytest.raises(RuntimeError, match="CUDA launch failed"):
-        dk.trsm_lower_batched(L, torch.zeros(1, M, 8, device=cuda, dtype=dtype))
+    assert dk.trsm_form(dtype, 1, M, 8, False) == "separator"
+    _check_trsm(False, _device_chol(cuda, M, dtype), _device_rhs(cuda, 1, M, 8, dtype))
+
+
+def _forms_cases():
+    """(dtype, bwd, K, M, S, form): the paths' shapes that changed form, and
+    both sides of each crossover of plan_trsm (separator_from,
+    columns_first; measured on an H100 with scripts/trsm_forms_ab.py).  K =
+    None stands for the card's SM count (one column-tiled CTA per SM)."""
+    f32, f64 = torch.float32, torch.float64
+    cases = []
+    for dt in (f32, f64):
+        for bwd in (False, True):
+            cases += [(dt, bwd, 1, 3952, 8, "separator"), (dt, bwd, 1, 5344, 8, "separator"),
+                      (dt, bwd, 2, 5344, 8, "separator")]
+        cases += [(dt, False, 40, 320, 176, "columns"), (dt, False, 11, 200, 960, "columns"),
+                  (dt, False, 17, 320, 152, "columns"), (dt, True, 40, 320, 176, "columns")]
+        cases += [(dt, True, 1, 536, 8, "cluster"), (dt, True, 1, 544, 8, "separator")]
+    cases += [(f32, False, 157, 192, 408, "columns"), (f32, False, 12, 232, 832, "columns"),
+              (f32, False, 1, 1144, 8, "cluster"), (f32, False, 1, 1152, 8, "separator"),
+              (f64, False, 1, 664, 8, "cluster"), (f64, False, 1, 672, 8, "separator"),
+              (f64, False, 17, 320, 8, "cluster"), (f64, False, 40, 320, 8, "separator"),
+              (f32, True, 17, 320, 8, "cluster"), (f32, True, 40, 320, 8, "separator"),
+              (f64, True, 16, 320, 8, "cluster"), (f64, True, 17, 320, 8, "separator"),
+              (f32, False, 13, 192, 32, "cluster"), (f32, False, 32, 192, 16, "columns"),
+              (f64, False, 31, 192, 16, "cluster"), (f64, False, 32, 192, 16, "columns"),
+              (f32, False, None, 192, 8, "columns"), (f64, True, None, 192, 8, "columns"),
+              (f32, False, -1, 192, 8, "cluster"), (f64, False, 1, 488, 48, "cluster")]
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bwd,K,M,S,form", _forms_cases())
+def test_cuda_trsm_forms_match_plain(cuda, dtype, bwd, K, M, S, form):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    K = sms if K is None else sms - 1 if K == -1 else K
+    assert dk.trsm_form(dtype, K, M, S, bwd) == form
+    L, B = _device_chol(cuda, M, dtype, K), _device_rhs(cuda, K, M, S, dtype)
+    dk.reset_launches()
+    _check_trsm(bwd, L, B)
+    assert dk.launches["trsm_lower_t_batched" if bwd else "trsm_lower_batched"] == 1
+
+
+# frozen pivots (L_jj = 1e10) at a separator M, in the separator form
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
+def test_cuda_trsm_separator_frozen_pivot_matches_plain(cuda, dtype, bwd):
+    M, zero = 3952, [7, 2000, 3951]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    G = torch.randn(1, M, M, device=cuda, dtype=torch.float64, generator=gen)
+    G[:, zero, :] = 0
+    A = G @ G.transpose(1, 2) / M
+    keep = [i for i in range(M) if i not in zero]
+    A[:, keep, keep] += 1.0
+    L = dk.chol_batched(A.to(dtype), clamp=1e-8)
+    assert dk.trsm_form(dtype, 1, M, 8, bwd) == "separator"
+    B = _device_rhs(cuda, 1, M, 8, dtype)
+    _check_trsm(bwd, L, B)
+    X = (dk.trsm_lower_t_batched if bwd else dk.trsm_lower_batched)(L, B)
+    assert float(X[0, zero].abs().max()) < 1e-6 * float(B.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_trsm_separator_graph_replay(cuda, dtype):
+    """The separator form (a workspace zeroed on the stream, then one
+    launch) captured in a CUDA graph and replayed on new right-hand sides."""
+    L = _device_chol(cuda, 3952, dtype)
+    B = _device_rhs(cuda, 1, 3952, 8, dtype)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        dk.trsm_lower_t_batched(L, B)  # plans and attributes before the capture
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        X = dk.trsm_lower_t_batched(L, B)
+    for seed in (5, 6):
+        B.copy_(torch.randn(B.shape, device=cuda, dtype=torch.float64,
+                            generator=torch.Generator(device=cuda).manual_seed(seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = dk.trsm_lower_t_batched_plain(L, B)
+        if dtype == torch.float64:
+            assert float((X - ref).abs().max() / ref.abs().max()) < 1e-10
+        else:
+            assert float((L.transpose(1, 2) @ X - B).abs().max() / B.abs().max()) < 1e-4
 
 
 @pytest.mark.gpu
