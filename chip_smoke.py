@@ -12,8 +12,9 @@ the run with a non-zero exit code and no result line:
               the main path's shapes, in float32 and float64, with frozen
               pivots; the Cholesky in each of its three forms (resident,
               streaming, large), at the exact mode's f64 shapes, the first
-              M on each side of its resident / streaming boundary, the
-              separators (1, 3952) in both dtypes and (1, 6400) in f64,
+              M on each side of its resident / streaming boundary and of
+              its streaming / large crossover, the separators (1, 3952) in
+              both dtypes and (1, 6400) in f64, K = 2 at M = 2048,
               the TRSMs in each of their three forms (cluster, separator,
               columns: each line says which) on both sides of each
               crossover, with frozen pivots at a separator M, K = 2 at a
@@ -26,7 +27,9 @@ the run with a non-zero exit code and no result line:
               bound (bound_ms: the card's least time for the call's bytes or
               FLOPs at its peak rates); then one separator-form TRSM captured
               in a CUDA graph and replayed on new right-hand sides
-              (trsm-graph);
+              (trsm-graph), and one large-form Cholesky at (1, 1472) f64
+              replayed on two new matrices, each within TOL_F64 of the plain
+              version and equal bit for bit to an eager launch (chol-graph);
   4. main     manhattan3500, mixed precision, chain mode, target 64,
               refine 0, 5 fused GN iterations; chi2 within 5e-3 of the f64
               oracle 404.504, every kernel launched by that run;
@@ -725,6 +728,17 @@ def _check_kernels(dev):
         ("trsm_lower_t_batched", 1, 4968, 8, (), (f32,), timed32),
         ("chol_batched", 1, 384, None, (), both, both),
         ("chol_batched", 1, 8, None, (), both, both),
+        # the Cholesky's crossovers (chol_large_from: the streaming form below,
+        # the large form from f32 M = 392, 440 at K >= 40; f64 296, 392 at
+        # K >= 40), each side ((1, 384) f32 above), and the large form at K = 2
+        ("chol_batched", 1, 392, None, (), (f32,), timed32),
+        ("chol_batched", 40, 432, None, (), (f32,), timed32),
+        ("chol_batched", 40, 440, None, (), (f32,), timed32),
+        ("chol_batched", 1, 288, None, (), (f64,), timed64),
+        ("chol_batched", 1, 296, None, (), (f64,), timed64),
+        ("chol_batched", 40, 384, None, (), (f64,), timed64),
+        ("chol_batched", 40, 392, None, (), (f64,), timed64),
+        ("chol_batched", 2, 2048, None, (), both, ()),
         ("trsm_lower_batched", 1, 384, 8, (), both, both),
         ("trsm_lower_batched", 1, 8, 8, (), both, both),
         ("trsm_lower_t_batched", 1, 384, 8, (), both, both),
@@ -873,6 +887,51 @@ def _trsm_graph(dev) -> None:
     ok = form == "separator" and bool(torch.isfinite(X).all()) and max(rels) < TOL_F64
     _line("trsm-graph", ok, time.perf_counter() - t0, kernel="trsm_lower_t_batched",
           shape=[1, M, 8], dtype="float64", form=form, rel_err=rels, tol=TOL_F64)
+
+
+def _chol_graph(dev) -> None:
+    """One large-form Cholesky (its workspace zeroed on the stream, then one
+    launch: no cooperative launch, no grid barrier) captured in a CUDA graph
+    at sphere-exact's separator shape and replayed on two new matrices, each
+    held to the plain version (f64: max |kernel - plain| over max |plain|
+    within TOL_F64) and bit for bit to an eager launch of the kernel."""
+    import torch
+
+    from slampp_tpu_torch.ops import dense_kernels as dk
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(11)
+    M = 1472
+    eye = torch.eye(M, device=dev, dtype=f64)
+
+    def new_matrix():
+        G = torch.randn(1, M, M, device=dev, dtype=f64, generator=gen)
+        return G @ G.transpose(1, 2) / M + eye
+
+    A = new_matrix()
+    form = dk.chol_form(f64, 1, M)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        dk.chol_batched(A)  # the plan and the kernel's attributes, before capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        L = dk.chol_batched(A)
+    rels, same = [], []
+    for _ in range(2):
+        A.copy_(new_matrix())
+        graph.replay()
+        ref = dk.chol_batched_plain(A)
+        eager = dk.chol_batched(A)
+        torch.cuda.synchronize()
+        rels.append(float((L - ref).abs().max() / ref.abs().max()))
+        same.append(bool(torch.equal(L, eager)))
+    ok = (form == "large" and bool(torch.isfinite(L).all()) and max(rels) < TOL_F64
+          and all(same))
+    _line("chol-graph", ok, time.perf_counter() - t0, kernel="chol_batched", shape=[1, M, M],
+          dtype="float64", form=form, rel_err=rels, equal_to_eager=same, tol=TOL_F64)
 
 
 # pose vertex type -> its state width
@@ -1614,6 +1673,7 @@ def main(kernels_only: bool = False) -> int:
     # 3. kernels against their plain versions
     summary = _check_kernels(dev)
     _trsm_graph(dev)
+    _chol_graph(dev)
     if kernels_only:
         _kernel_bench(summary)
         print(json.dumps({"seconds": time.perf_counter() - T_START,

@@ -4,7 +4,7 @@
 // slampp_tpu/ops/dense_kernels.py, all of which ran through _batched_call
 // (pl.pallas_call at dense_kernels.py:286):
 //
-//   chol_kernel, chol_big_kernel       <- _chol_kernel      (dense_kernels.py:184), chol_batched
+//   chol_kernel, chol_tiled_kernel     <- _chol_kernel      (dense_kernels.py:184), chol_batched
 //   trsm_kernel, trsm_sep_kernel,
 //     trsm_cols_kernel <T, false, ...> <- _trsm_fwd_kernel  (dense_kernels.py:215), trsm_lower_batched
 //   the same <T, true, ...>            <- _trsm_bwd_kernel  (dense_kernels.py:236), trsm_lower_t_batched
@@ -59,40 +59,64 @@
 //    part right of each diagonal block is zeroed once, and each panel's rows
 //    are staged in shared memory by coalesced 16-byte copies.
 //
-// Large form (chol_big_kernel: the separators, (1, 488) to (1, 3952) and
-// beyond): one cooperative launch of as many 256-thread CTAs as the card
-// holds at once (2 per SM), the factor formed in place in the output, the
-// three steps of each 32-wide panel separated by grid-wide barriers.  The
-// one-CTA design took 404 ms at (1, 3952, 3952) f32 (M^3 / 3 = 2.06e10
-// FLOP on one SM, 1300x the 0.31 ms bound) and could not take f64 beyond
-// M = 3104 (its W^T and staged rows no longer fit one SM's shared memory).
-// Per panel:
-//  * every CTA with panel rows loads the factored 32 x 32 diagonal block
-//    and solves its rows by substitution, one row per thread (W[c] =
-//    (a[c] - sum_{t < c} W[t] L[c][t]) / L[c][c], as the plain version);
-//  * the trailing update of the lower triangle in 64 x 64 tiles spread over
-//    the grid, each thread a 4 x 4 register tile fed by two 16-byte shared
-//    loads of W^T per depth step, the 32 products summed from zero and
-//    subtracted once;
-//  * the CTA of tile (0, 0), which holds the next diagonal block, factors it
-//    (warp 0, as above) right after its own update, so the next panel's
-//    rows find it factored after the barrier: two grid barriers per panel.
-// Any M that memory holds, in both dtypes; K matrices share the grid as
-// (matrix, rows) and (matrix, tile) items.  What bounds it is the panel
-// chain: about 25-40 us per panel on an H100 (two barriers, the diagonal
-// block's serial factorization, a substitution of 32 dependent steps), so
-// 5.0 ms at (1, 3952, 3952) f32 against cholesky_ex's 1.74 (PERF.md).
+// Large form (chol_tiled_kernel: the separators, (1, 384) to (1, 6400) and
+// beyond): a right-looking Cholesky in 64 x 64 tiles, its tasks taken from a
+// ticket counter by a persistent grid (two 256-thread CTAs per SM); no grid
+// barrier and no cooperative launch, so a CUDA graph can capture it
+// (chip_smoke.py replays one).  The form it replaces (32-wide panels, one
+// cooperative launch, two grid barriers a panel) lost 2.3-4.6x to
+// cholesky_ex; see tiled_tasks for the order of the tasks.
+//  * Tiles 64 wide: the trailing update reads and writes each tile once per
+//    64 columns, not 32, and a tile's update (a 64 x 64 x 64 product) takes
+//    its two panels through a ring of cp.async chunks.  f64 on the tensor
+//    cores (mma.sync m16n8k4, DMMA), f32 on FFMA (TF32 would miss the f32
+//    tolerance).  128-wide tiles were slower at every measured shape, by
+//    3-9% at the f64 separators from M = 5344 and more elsewhere (kTile).
+//  * The panel as a product: the diagonal tile is factored (32-wide blocks,
+//    exact pivots frozen at 1e20 where d <= clamp or NaN, as chol_diag) and
+//    inverted in one CTA, and every tile of the panel is W = A L_gg^-T, one
+//    64 x 64 product; no substitution is left on the chain.
+//  * Ticketed tasks with look-ahead: each step of the chain (the diagonal
+//    tile's update, factor and inverse, then the tile below it) is one
+//    task, taken before the bulk of the step before; every task waits only
+//    on tasks with earlier tickets, so the launch needs no co-residency.
+//    Each tile keeps a counter of the steps applied to it, published with
+//    release after a CTA barrier and a fence, polled with acquire (every
+//    poll traps after kPollLimit), its data read past the L1.  The
+//    counters live in a workspace that the entry point zeroes on the stream.
+//  * Each tile takes its steps in order and every sum has a fixed order, so
+//    two launches on the same input give the same bits.
+//  * Products are one non-inlined function (one copy of the code serves
+//    every task), their results staged in shared memory and written
+//    (C - sum) in coalesced 16-byte vectors, C itself prefetched with the
+//    first chunk.
+// What bounds it on an H100 (scripts/chol_forms_ab.py, PERF.md): the chain.
+// A step is ~49 us in f32 ((1, 3952): 62 steps in 3.05 ms) and ~85 us in
+// f64 ((1, 5344): 84 in 7.17), of which the tile's factor takes 29 and 54:
+// its two warp-level 32-column factors (chol_diag) 21 and 38 us there,
+// against 4.3 and 6.5 us alone in one warp, as the kernel's two CTAs per
+// SM cap registers at 128 and the update tasks share the SM; the pivots
+// stay correctly rounded.  The bulk (~15 us of latency around each tile
+// product of ~3 us) keeps pace.  So the form is 1.2-2.3x faster than the
+// cooperative one and 1.4-2.3x slower than cholesky_ex (PERF.md).
+// Crossover with the streaming form: chol_large_from.
 //
 // Accuracy: subtracting each of a panel's products from an entry in turn
-// (the one-CTA design before) rounds at the entry's magnitude once per
+// (an earlier one-CTA design) rounds at the entry's magnitude once per
 // column; at the sphere2500 separator (condition ~6.6e5) that made the f32
-// factor's residual 4x the plain version's and a solve through it 8x less
-// accurate.  Summing the products first, as the plain version's A -= W W^T
-// does, and taking exact pivots gives a residual below the plain version's
-// (PERF.md).
-//
-// No tensor cores (TF32 would miss the f32 tolerance; f64 DMMA is queued
-// work).
+// factor's residual 4x the plain version's.  Summing the products first, as
+// the plain version's A -= W W^T does, and taking exact pivots gives a
+// residual below the plain version's.  The tiled form sums a step's 64
+// products from zero and subtracts once (in f32 each 32-deep chunk's sum
+// first, then the chunk sums: one sum over the whole depth let the CPU
+// rehearsal's f32 residual at condition ~1e6 pass twice the plain
+// version's; two levels stay within it), and forms the panel with the
+// explicit inverse of the diagonal tile; both are backward stable orders
+// of the same blocked algorithm, so f64 stays within a few ulps times the
+// condition of the plain version (9.2e-16 on the card) and the f32
+// residual near it (3.4e-7 to 5.0e-7 against the plain version's 2.6e-7
+// to 8.7e-7; scripts/chol_forms_ab.py step 1; tests/test_torch_dense_kernels.py
+// rehearses the order on the CPU against the JAX package).
 
 // Triangular solves: three forms, chosen on the host per (device, K, M, S,
 // dtype, direction) and kept (plan_trsm; dk.trsm_form names the choice).
@@ -708,6 +732,11 @@ __device__ __forceinline__ void store_vec(T* p, const T* v) {
   for (int u = 0; u < n / kV; ++u) reinterpret_cast<V*>(p)[u] = pack(v + u * kV);
 }
 
+// 1 / x correctly rounded: the bits of T(1) / x, in fewer instructions
+// than a division (the pivot chain of the Cholesky waits on it).
+__device__ __forceinline__ float rcp_rn(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double rcp_rn(double x) { return __drcp_rn(x); }
+
 // The pivot of a column: d <= clamp (or NaN) is frozen at 1e20, as
 // _chol_value (dense_kernels.py:69-112) does.  Returns L_jj = sqrt(d),
 // correctly rounded; *inv = 1 / L_jj, correctly rounded, so that the
@@ -719,7 +748,7 @@ template <typename T>
 __device__ __forceinline__ T pivot(T d, T clamp, T* inv) {
   d = (d > clamp) ? d : T(1e20);
   const T ljj = sqrt_t(d);
-  *inv = T(1) / ljj;
+  *inv = rcp_rn(ljj);
   return ljj;
 }
 
@@ -1025,238 +1054,11 @@ __global__ void __launch_bounds__(kCholThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Cholesky, large form: the whole card, one cooperative launch
+// asynchronous copies and flags between CTAs (the large Cholesky form and
+// the separator-form TRSM)
 // ---------------------------------------------------------------------------
 
-constexpr int kBigThreads = 256;
-constexpr int kTile = 64;  // trailing-update tiles: 64 x 64, 4 x 4 per thread
-
-// Row stride of a transposed 64-row block of W in shared memory: rows stay
-// 16-byte aligned for the vector loads of the update.
-template <typename T>
-constexpr int kLdt = kTile + static_cast<int>(16 / sizeof(T));
-
-// One row of the panel in place: W = a L_d^-T by substitution, column by
-// column, each W[c] = (a[c] - sum_{t < c} W[t] L_d[c][t]) / L_d[c][c] as
-// the plain version's _trsm_right_T_value (dense_kernels.py) forms it, with
-// the rows of L_d ([kNB][kLdv] in shared memory) read as broadcast 16-byte
-// vectors.
-template <typename T>
-__device__ __forceinline__ void panel_solve_row(T* a, const T* sD) {
-  constexpr int kV = 16 / sizeof(T);
-  T x[kNB];
-  load_vec<T, kNB>(a, x);
-#pragma unroll
-  for (int c = 0; c < kNB; ++c) {
-    T y = x[c];
-#pragma unroll
-    for (int t0 = 0; t0 <= c; t0 += kV) {
-      T q[kV];
-      load_vec<T, kV>(sD + c * kLdv<T> + t0, q);
-#pragma unroll
-      for (int e = 0; e < kV; ++e)
-        if (t0 + e < c) y -= x[t0 + e] * q[e];
-      if (t0 + kV > c) x[c] = y / q[c - t0];
-    }
-  }
-  store_vec<T, kNB>(a, x);
-}
-
-// 64 rows of W (columns [j0, j0 + 32) of rows [r0, r0 + 64) of l; zeros
-// from row M on), transposed into w ([kNB][kLdt]).
-template <typename T>
-__device__ __forceinline__ void load_wt(const T* l, int M, int j0, int r0, T* w) {
-  constexpr int kV = 16 / sizeof(T);
-  constexpr int kPerRow = kNB / kV;
-  for (int idx = threadIdx.x; idx < kTile * kPerRow; idx += kBigThreads) {
-    const int r = idx / kPerRow, q = idx - r * kPerRow;
-    T v[kV];
-    if (r0 + r < M) {
-      load_vec<T, kV>(l + static_cast<size_t>(r0 + r) * M + j0 + q * kV, v);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kV; ++e) v[e] = T(0);
-    }
-#pragma unroll
-    for (int e = 0; e < kV; ++e) w[(q * kV + e) * kLdt<T> + r] = v[e];
-  }
-}
-
-// The tile of rows [r0, r0 + 64) and columns [c0, c0 + 64) of l minus W_r
-// W_c^T, the 32 columns of the panel at j0 (diag: r0 == c0, the lower
-// triangle only).  Thread (ty, tx) of a 16 x 16 grid keeps rows r0 + 4ty ..
-// + 3 and columns c0 + 4tx .. + 3 in registers: per depth step two 16-byte
-// (f32) shared loads of W^T for 16 FMAs.  The 32 products of an entry are
-// summed from zero and subtracted once.
-template <typename T>
-__device__ __forceinline__ void trailing_tile(T* l, int M, int j0, int r0, int c0, T* sWr,
-                                              T* sWc) {
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const bool diag = r0 == c0;
-  __syncthreads();  // the tile before has read sWr / sWc
-  load_wt<T>(l, M, j0, r0, sWr);
-  if (!diag) load_wt<T>(l, M, j0, c0, sWc);
-  __syncthreads();
-  const T* wc = diag ? sWr : sWc;
-  T s[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = T(0);
-#pragma unroll 8
-  for (int t = 0; t < kNB; ++t) {
-    T x[4], y[4];
-    load_vec<T, 4>(sWr + t * kLdt<T> + 4 * ty, x);
-    load_vec<T, 4>(wc + t * kLdt<T> + 4 * tx, y);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] += x[a] * y[b];
-  }
-  const int c = c0 + 4 * tx;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = r0 + 4 * ty + a;
-    if (r >= M || c >= M || (diag && c > r)) continue;
-    T* p = l + static_cast<size_t>(r) * M + c;
-    T v[4];
-    load_vec<T, 4>(p, v);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) v[b] -= s[a][b];
-    if (!diag || c + 3 <= r) {
-      store_vec<T, 4>(p, v);
-    } else {
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (c + b <= r) p[b] = v[b];
-    }
-  }
-}
-
-// Right-looking blocked Cholesky of K (M, M) matrices on every SM: the
-// factor is formed in place in L (global memory, L2-resident as far as it
-// fits), in 32-wide panels; see the note at the top of the file.  Work is
-// spread over the grid as items, (matrix, 256 panel rows) and (matrix,
-// trailing tile), and the phases are separated by grid-wide barriers of the
-// cooperative launch:
-//   0. L = the lower triangle of A, zeros above; each matrix's first
-//      diagonal block is factored from A by warp 0 of one CTA;
-//   per panel p with rows below it:
-//   1. each CTA with panel rows loads the factored diagonal block L_d and
-//      solves its rows (one per thread) in place;            -- grid sync
-//   2. the trailing update of the lower triangle right of the panel in
-//      64 x 64 tiles; the CTA of tile (0, 0), which holds the next diagonal
-//      block, factors that block right after its update, so phase 1 of the
-//      next panel finds it ready.                            -- grid sync
-template <typename T>
-__global__ void __launch_bounds__(kBigThreads, 2)
-    chol_big_kernel(const T* A, T* L, int K, int M, T clamp) {
-  __shared__ __align__(16) T sD[kNB * kLdv<T>];
-  __shared__ __align__(16) T sWr[kNB * kLdt<T>];
-  __shared__ __align__(16) T sWc[kNB * kLdt<T>];
-  cg::grid_group grid = cg::this_grid();
-  constexpr int kV = 16 / sizeof(T);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int b = blockIdx.x, nb = gridDim.x;
-  const size_t MM = static_cast<size_t>(M) * M;
-  const int P = (M + kNB - 1) / kNB;
-
-  // 0. the lower triangle of A into L (16-byte vectors; M is a multiple of
-  //    8, so a vector never crosses a row), but the first diagonal blocks
-  const size_t nvec = static_cast<size_t>(K) * MM / kV;
-  for (size_t v = static_cast<size_t>(b) * kBigThreads + tid; v < nvec;
-       v += static_cast<size_t>(nb) * kBigThreads) {
-    const size_t off = (v * kV) % MM;
-    const int i = static_cast<int>(off / M), c = static_cast<int>(off % M);
-    if (i < kNB && c < kNB) continue;
-    T x[kV];
-    if (c <= i) {
-      load_vec<T, kV>(A + v * kV, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kV; ++e) x[e] = T(0);
-    }
-#pragma unroll
-    for (int e = 0; e < kV; ++e)
-      if (c + e > i) x[e] = T(0);
-    store_vec<T, kV>(L + v * kV, x);
-  }
-  if (warp == 0)
-    for (int k = b; k < K; k += nb)
-      chol_diag<T, false>(A + k * MM, L + k * MM, nullptr, M, 0, imin(kNB, M), clamp);
-  grid.sync();
-
-  for (int p = 0; p + 1 < P; ++p) {
-    const int j0 = p * kNB, j1 = j0 + kNB;
-    // 1. the panel rows [j1, M) of each matrix, kBigThreads rows per item
-    const int chunks = (M - j1 + kBigThreads - 1) / kBigThreads;
-    int loaded = -1;
-    for (int it = b; it < K * chunks; it += nb) {
-      const int k = it / chunks;
-      T* l = L + k * MM;
-      if (k != loaded) {
-        __syncthreads();  // the rows of the matrix before have read sD
-        for (int idx = tid; idx < kNB * (kNB / kV); idx += kBigThreads) {
-          const int r = idx / (kNB / kV), q = idx - r * (kNB / kV);
-          T x[kV];
-          load_vec<T, kV>(l + static_cast<size_t>(j0 + r) * M + j0 + q * kV, x);
-          store_vec<T, kV>(sD + r * kLdv<T> + q * kV, x);
-        }
-        __syncthreads();
-        loaded = k;
-      }
-      const int r = j1 + (it - k * chunks) * kBigThreads + tid;
-      if (r < M) panel_solve_row<T>(l + static_cast<size_t>(r) * M + j0, sD);
-    }
-    grid.sync();
-    // 2. the trailing update, tile (I, J), J <= I, of nt x nt per matrix
-    const int nt = (M - j1 + kTile - 1) / kTile;
-    const int per = nt * (nt + 1) / 2;
-    for (int it = b; it < K * per; it += nb) {
-      const int k = it / per, t = it - k * per;
-      int I = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
-      while (I * (I + 1) / 2 > t) --I;
-      while ((I + 1) * (I + 2) / 2 <= t) ++I;
-      const int J = t - I * (I + 1) / 2;
-      T* l = L + k * MM;
-      trailing_tile<T>(l, M, j0, j1 + I * kTile, j1 + J * kTile, sWr, sWc);
-      if (t == 0) {
-        __syncthreads();  // the tile's stores are visible to warp 0
-        if (warp == 0) chol_diag<T, false>(l, l, nullptr, M, j1, imin(kNB, M - j1), clamp);
-      }
-    }
-    grid.sync();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// triangular solves: the separator form and the column-tiled form
-// ---------------------------------------------------------------------------
-
-constexpr int kTileThreads = 256;  // both forms: 8 warps
-constexpr int kSepStages = 8;      // separator form: tiles of L in flight per CTA
-constexpr int kColTile = 32;       // column-tiled form: rhs columns per CTA
 constexpr unsigned kPollLimit = 1u << 26;
-
-// Column-tiled form: tiles of L in flight per CTA, and the layout of its x
-// rows.  f32: rows of 32 + 4 (16-byte aligned rows for float4 loads).  f64:
-// rows of 32 with no pad and the two halves of a row swapped in odd rows,
-// so that the four rows a DMMA B fragment reads fall on both bank halves,
-// and a ring of 3 tiles: the x rows of M = 320 and the ring (108 KB) leave
-// room for two CTAs per SM (f64 (40, 320, 176): 0.130 ms with 4 tiles, one
-// CTA per SM and 8 more bytes a row; 0.109 with two CTAs; H100, PERF.md).
-// The ring's depth is a constant: chosen per shape at run time (the
-// deepest that keeps the occupancy) it made every shape 5-25% slower.
-template <typename T>
-constexpr int kColStages = sizeof(T) == 8 ? 3 : 4;
-template <typename T>
-constexpr int kLdx = kColTile + (sizeof(T) == 8 ? 0 : 4);
-template <typename T>
-__device__ __forceinline__ int xoff(int r, int c) {
-  return r * kLdx<T> + (sizeof(T) == 8 ? c ^ ((r & 1) << 3) : c);
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
@@ -1278,6 +1080,714 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 }
 __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Spins until *p >= v (acquire); traps after kPollLimit polls, so that a
+// hang becomes a launch error.
+__device__ __forceinline__ void wait_at_least(const unsigned* p, unsigned v) {
+  for (unsigned tries = 0; ld_acquire(p) < v; ++tries)
+    if (tries > kPollLimit) __trap();
+}
+
+// ---------------------------------------------------------------------------
+// Cholesky, large form: kT-wide tiles on a ticketed task graph
+// ---------------------------------------------------------------------------
+
+constexpr int kTiledThreads = 256;  // 8 warps
+// The tile width: 64 (128 was slower at every measured shape in both
+// dtypes: H100, PERF.md; the kernel takes either).
+constexpr int kTile = 64;
+
+// Depth of one staged chunk of a tile product and the ring's depth (f64:
+// chunks of 16 columns, 3 in flight at kT = 64, so that two CTAs hold the
+// ring and the prefetched C tile, 4 at 128; f32: 32 columns, 3), and the
+// chunk's
+// row stride: a pad of 4 entries keeps the rows 16-byte aligned for cp.async
+// and puts the 8 rows a DMMA fragment (or the 16 rows of the f32 thread
+// grid) reads on distinct banks within each 128-byte wavefront.
+template <typename T>
+constexpr int kChunk = sizeof(T) == 8 ? 16 : 32;
+template <typename T, int kT>
+constexpr int kRing = sizeof(T) == 8 ? (kT == 64 ? 3 : 4) : 3;
+template <typename T>
+constexpr int kLdc = kChunk<T> + 4;
+// Row strides of the diagonal tile and of W^T in its factor (16 bytes of
+// pad: rows stay 16-byte aligned, columns spread over the banks).
+template <typename T, int kT>
+constexpr int kLdt = kT + static_cast<int>(16 / sizeof(T));
+template <typename T, int kT>
+constexpr int kLdw = kT - kNB + static_cast<int>(16 / sizeof(T));
+
+// One mma.sync m16n8k4 f64 (DMMA): c (16 x 8) += a (16 x 4) b (4 x 8).
+// Lane (g, t) = (lane / 4, lane % 4) holds a0 = A[g][t], a1 = A[g + 8][t],
+// b = B[t][g], and c[0..1] = C[g][2t .. 2t + 1], c[2..3] = C[g + 8][...]: the
+// m8n8k4 layout of trsm_cols_kernel, twice over.
+__device__ __forceinline__ void dmma16(double* c, double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// The accumulator of one kT x kT tile product C = A B^T (A, B: kT rows of
+// the depth, row-major chunks [kT][kLdc] in shared memory), spread over the
+// CTA's 256 threads; every entry's products are summed from zero in depth
+// order.  f64: DMMA, warp w the rows (w / 4) kT / 2 .. + kT / 2 and the
+// columns (w % 4) kT / 4 .. + kT / 4, in m16 x n8 fragments, one sum over
+// the whole depth.  f32: FFMA, thread (ty, tx) of a 16 x 16 grid the rows
+// ty + 16a and columns tx + 16b, a, b < kT / 16, fed by 16- or 8-byte loads
+// along the depth (TF32 would miss the f32 tolerance); each 32-deep chunk's
+// products are summed from zero and the chunk sums added in turn (one sum
+// of 64 or 128 products put the factor's f32 residual at 2-4x the plain
+// version's in a CPU rehearsal; two levels at 1.3-1.5x, PERF.md).
+template <typename T, int kT>
+struct TileAcc;
+
+template <int kT>
+struct TileAcc<double, kT> {
+  static constexpr int kMB = kT / 32, kNB8 = kT / 32;
+  double c[kMB][kNB8][4];
+
+  __device__ __forceinline__ static int row0() {
+    return (threadIdx.x >> 7) * (kT / 2) + ((threadIdx.x & 31) >> 2);
+  }
+  __device__ __forceinline__ static int col0() {
+    return ((threadIdx.x >> 5) & 3) * (kT / 4) + ((threadIdx.x & 31) >> 2);
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < kMB; ++m)
+#pragma unroll
+      for (int n = 0; n < kNB8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[m][n][e] = 0.0;
+  }
+  __device__ __forceinline__ void mma(const double* as, const double* bs) {
+    const int t = threadIdx.x & 3;
+    const double* ap = as + row0() * kLdc<double> + t;
+    const double* bp = bs + col0() * kLdc<double> + t;
+#pragma unroll
+    for (int k = 0; k < kChunk<double>; k += 4) {
+      double a[kMB][2], b[kNB8];
+#pragma unroll
+      for (int m = 0; m < kMB; ++m) {
+        a[m][0] = ap[(16 * m) * kLdc<double> + k];
+        a[m][1] = ap[(16 * m + 8) * kLdc<double> + k];
+      }
+#pragma unroll
+      for (int n = 0; n < kNB8; ++n) b[n] = bp[(8 * n) * kLdc<double> + k];
+#pragma unroll
+      for (int m = 0; m < kMB; ++m)
+#pragma unroll
+        for (int n = 0; n < kNB8; ++n) dmma16(c[m][n], a[m][0], a[m][1], b[n]);
+    }
+  }
+  // f(row, col, value) over this thread's entries
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    const int r0 = row0();
+    const int c0 = ((threadIdx.x >> 5) & 3) * (kT / 4) + 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int m = 0; m < kMB; ++m)
+#pragma unroll
+      for (int n = 0; n < kNB8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f(r0 + 16 * m + 8 * (e >> 1), c0 + 8 * n + (e & 1), c[m][n][e]);
+  }
+};
+
+template <int kT>
+struct TileAcc<float, kT> {
+  static constexpr int kR = kT / 16;
+  static constexpr int kDv = kT >= 128 ? 2 : 4;  // depth of one shared load (registers)
+  float c[kR][kR];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int a = 0; a < kR; ++a)
+#pragma unroll
+      for (int b = 0; b < kR; ++b) c[a][b] = 0.0f;
+  }
+  __device__ __forceinline__ static void load(const float* p, float* v) {
+    if constexpr (kDv == 4) {
+      unpack(*reinterpret_cast<const float4*>(p), v);
+    } else {
+      const float2 q = *reinterpret_cast<const float2*>(p);
+      v[0] = q.x, v[1] = q.y;
+    }
+  }
+  // the chunk's products summed from zero, then added to the total
+  __device__ __forceinline__ void mma(const float* as, const float* bs) {
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+    float p[kR][kR];
+#pragma unroll
+    for (int a = 0; a < kR; ++a)
+#pragma unroll
+      for (int b = 0; b < kR; ++b) p[a][b] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kChunk<float>; k += kDv) {
+      float x[kR][kDv], y[kR][kDv];
+#pragma unroll
+      for (int a = 0; a < kR; ++a) load(as + (ty + 16 * a) * kLdc<float> + k, x[a]);
+#pragma unroll
+      for (int b = 0; b < kR; ++b) load(bs + (tx + 16 * b) * kLdc<float> + k, y[b]);
+#pragma unroll
+      for (int e = 0; e < kDv; ++e)
+#pragma unroll
+        for (int a = 0; a < kR; ++a)
+#pragma unroll
+          for (int b = 0; b < kR; ++b) p[a][b] += x[a][e] * y[b][e];
+    }
+#pragma unroll
+    for (int a = 0; a < kR; ++a)
+#pragma unroll
+      for (int b = 0; b < kR; ++b) c[a][b] += p[a][b];
+  }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+    for (int a = 0; a < kR; ++a)
+#pragma unroll
+      for (int b = 0; b < kR; ++b) f(ty + 16 * a, tx + 16 * b, c[a][b]);
+  }
+};
+
+// Columns [col0, col0 + kChunk) of the first `rows` rows of the row-major
+// tile g (row stride ld) into s ([kT][kLdc]) by 16-byte cp.async copies;
+// rows from `rows` on are zero-filled.  The caller commits.
+template <typename T, int kT>
+__device__ __forceinline__ void copy_chunk(T* s, const T* g, int ld, int rows, int col0) {
+  constexpr int kV = 16 / sizeof(T);
+  constexpr int kPerRow = kChunk<T> / kV;
+#pragma unroll
+  for (int q = threadIdx.x; q < kT * kPerRow; q += kTiledThreads) {
+    const int r = q / kPerRow, c = (q % kPerRow) * kV;
+    const bool ok = r < rows;
+    cp_async16(s + r * kLdc<T> + c, ok ? g + static_cast<size_t>(r) * ld + col0 + c : g, ok);
+  }
+}
+
+// acc += A B^T over the depth kT: A the first arows rows of the tile a, B
+// the first brows rows of b (B = A where same), both row-major in global
+// memory (L2), streamed through a ring of kRing chunks (cp.async.cg: past
+// the L1, which is not coherent with the other CTAs' writes); where cbuf is
+// given, the first crows x ccols of the tile c (row stride lda) arrive in
+// it too, with the first chunk.  Starts and ends with a CTA barrier, so
+// that the ring may overlay other shared data.
+template <typename T, int kT>
+__device__ __forceinline__ void tile_product(const T* a, int lda, int arows, const T* b, int ldb,
+                                             int brows, bool same, T* ring, TileAcc<T, kT>& acc,
+                                             const T* csrc = nullptr, int crows = 0, int ccols = 0,
+                                             T* cbuf = nullptr) {
+  constexpr int kSlot = 2 * kT * kLdc<T>;
+  constexpr int kChunks = kT / kChunk<T>;
+  auto issue = [&](int c) {
+    if (c < kChunks) {
+      T* s = ring + (c % kRing<T, kT>) * kSlot;
+      copy_chunk<T, kT>(s, a, lda, arows, c * kChunk<T>);
+      if (!same) copy_chunk<T, kT>(s + kT * kLdc<T>, b, ldb, brows, c * kChunk<T>);
+    }
+    cp_async_commit();
+  };
+  __syncthreads();
+  if (cbuf) {  // the C tile (crows x ccols of c, row stride lda), with the first chunk
+    constexpr int kV = 16 / sizeof(T);
+    const int per = ccols / kV;
+    for (int q = threadIdx.x; q < crows * per; q += kTiledThreads) {
+      const int r = q / per, col = (q % per) * kV;
+      cp_async16(cbuf + r * kLdt<T, kT> + col, csrc + static_cast<size_t>(r) * lda + col, true);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kRing<T, kT> - 1; ++c) issue(c);
+#pragma unroll 1
+  for (int c = 0; c < kChunks; ++c) {
+    cp_async_wait<kRing<T, kT> - 2>();
+    __syncthreads();  // chunk c in place; every thread is past chunk c - 1
+    issue(c + kRing<T, kT> - 1);
+    const T* s = ring + (c % kRing<T, kT>) * kSlot;
+    acc.mma(s, same ? s : s + kT * kLdc<T>);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The w x w diagonal block at (j0, j0) of the tile s (row stride ld)
+// factored in place by warp 0 with chol_diag's operations in chol_diag's
+// order, but in a rolled loop: for f64, where the unrolled block (~3,000
+// instructions, two shuffles a double) ran slower in the kernel at the
+// large separators, beside the bulk's traffic and under the register cap
+// of two CTAs per SM (f32 stays unrolled; scripts/chol_forms_ab.py, steps
+// 3 and 5, PERF.md).  Lane r keeps row r in registers,
+// rotated by 4 after every 4 columns so that d[u] is column j + u; each
+// column is broadcast through colbuf ([2][kNB] in shared memory) and
+// written to s as it is final.
+template <typename T>
+__device__ __forceinline__ void chol_diag_rolled(T* s, int ld, int j0, int w, T clamp, T* colbuf) {
+  const int lane = threadIdx.x & 31;
+  T d[kNB];
+  if (lane < w) {
+    const T* row = s + (j0 + lane) * ld + j0;
+#pragma unroll
+    for (int c = 0; c < kNB; c += 8)
+      if (c < w) load_vec<T, 8>(row + c, d + c);
+  }
+#pragma unroll
+  for (int c = 0; c < kNB; ++c) {
+    if (lane >= w) d[c] = (c == lane) ? T(1) : T(0);
+    else if (c > lane) d[c] = T(0);
+  }
+  T* out = s + (j0 + lane) * ld + j0;
+  T inv;
+  T ljj = pivot(__shfl_sync(kFull, d[0], 0), clamp, &inv);
+#pragma unroll 1
+  for (int jb = 0; jb < kNB; jb += 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = jb + u;
+      const T lrj = lane == j ? ljj : (lane > j ? d[u] * inv : T(0));
+      if (lane < w) out[j] = lrj;
+      colbuf[(j & 1) * kNB + lane] = lrj;
+      if (j + 1 < kNB) {
+        d[u + 1] -= lrj * __shfl_sync(kFull, lrj, j + 1);
+        ljj = pivot(__shfl_sync(kFull, d[u + 1], j + 1), clamp, &inv);
+      }
+      __syncwarp();
+      const T* col = colbuf + (j & 1) * kNB;
+#pragma unroll
+      for (int c = u + 2; c < kNB; ++c)
+        if (j + c - u < kNB) d[c] -= lrj * col[j + c - u];
+    }
+#pragma unroll
+    for (int c = 0; c + 4 < kNB; ++c) d[c] = d[c + 4];
+  }
+}
+
+// Factors the n x n lower tile s (row stride kLdt, n a multiple of 8, zeros
+// above the diagonal and beyond n) in place, in 32-wide panels as the
+// one-CTA forms do: warp 0 factors the diagonal block (chol_diag_rolled:
+// exact pivots, frozen at 1e20 where d <= clamp or NaN), all warps invert
+// it (invert_diag, into block p of dinv [kT / kNB][kNB][kLdv], kept for
+// invert_tile), form W = a L_d^-T for the rows below (each entry summed from
+// zero in column order, as panel_row sums it; W^T also into wt [kNB][ldw])
+// and subtract W W^T from the lower triangle below, each entry's 32
+// products summed from zero first (as chol_trailing, over every thread).
+template <typename T, int kT>
+__device__ __forceinline__ void factor_tile(T* s, int n, T clamp, T* dinv, T* wt, T* colbuf) {
+  constexpr int ld = kLdt<T, kT>;
+  constexpr int ldw = kLdw<T, kT>;
+  constexpr int kMaxQ = (kT - kNB) * kNB / kTiledThreads;  // entries of W a thread
+  const int P = (n + kNB - 1) / kNB;
+  const int tid = threadIdx.x, c = tid & 31;
+  for (int p = 0; p < P; ++p) {
+    const int j0 = p * kNB;
+    T* di = dinv + p * kNB * kLdv<T>;
+    if (tid < 32) {  // the same bits either way
+      const int w = imin(kNB, n - j0);
+      if constexpr (sizeof(T) == 8) chol_diag_rolled<T>(s, ld, j0, w, clamp, colbuf);
+      else chol_diag<T, false>(s, s, nullptr, ld, j0, w, clamp);
+    }
+    __syncthreads();
+    invert_diag<T, false, kLdv<T>>(s + j0 * ld + j0, ld, imin(kNB, n - j0), di);
+    __syncthreads();
+    if (p + 1 < P) {
+      const int j1 = j0 + kNB;
+      const int nq = (P * kNB - j1) * kNB / kTiledThreads;
+      T v[kMaxQ > 0 ? kMaxQ : 1];
+#pragma unroll
+      for (int q = 0; q < kMaxQ; ++q) {
+        const int r = j1 + (tid >> 5) + 8 * q;
+        T x = T(0);
+        if (q < nq && r < n) {
+          const T* a = s + r * ld + j0;
+#pragma unroll 8
+          for (int t = 0; t < kNB; ++t) x += a[t] * di[c * kLdv<T> + t];
+        }
+        v[q] = x;
+      }
+      __syncthreads();  // every row of the panel read
+#pragma unroll
+      for (int q = 0; q < kMaxQ; ++q) {
+        const int r = j1 + (tid >> 5) + 8 * q;
+        if (q < nq) {
+          if (r < n) s[r * ld + j0 + c] = v[q];
+          wt[c * ldw + r - j1] = v[q];
+        }
+      }
+      __syncthreads();
+      // the lower triangle of rows and columns [j1, P kNB) less W W^T: the
+      // 32 products of an entry summed from zero in order, as chol_trailing
+      // sums them, spread over every thread (lanes along a row)
+      const int nr = P * kNB - j1;
+      for (int e = tid; e < nr * nr; e += kTiledThreads) {
+        const int r = e / nr, col = e - r * nr;
+        if (col > r || j1 + r >= n) continue;
+        T x = T(0);
+#pragma unroll 8
+        for (int t = 0; t < kNB; ++t) x += wt[t * ldw + r] * wt[t * ldw + col];
+        s[(j1 + r) * ld + j1 + col] -= x;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The full kT x kT lower factor s (row stride kLdt) in place into its
+// inverse X = L^-1, block column by block column from the last (32-wide
+// blocks J): X_JJ = L_JJ^-1 (block J of dinv, from factor_tile), then below
+// it X_RJ = -(X_RR L_RJ) X_JJ, where R = the rows after J, whose X_RR is
+// inverted already.  Each entry's products are summed from zero.
+template <typename T, int kT>
+__device__ __forceinline__ void invert_tile(T* s, const T* dinv_all) {
+  constexpr int ld = kLdt<T, kT>;
+  constexpr int kMaxQ = (kT - kNB) * kNB / kTiledThreads;  // entries of X_RJ a thread
+  const int tid = threadIdx.x;
+  const int c = tid & 31;
+  for (int J = kT / kNB - 1; J >= 0; --J) {
+    const int j0 = J * kNB, j1 = j0 + kNB;
+    const int nq = (kT - j1) * kNB / kTiledThreads;  // this J's entries a thread
+    const T* dinv = dinv_all + J * kNB * kLdv<T>;
+    // thread entries (r, c), r = tid / 32 + 8q: X_RR L_RJ over the whole
+    // of R (X_RR is zero above its diagonal)
+    T v[kMaxQ > 0 ? kMaxQ : 1];
+#pragma unroll
+    for (int q = 0; q < (kMaxQ > 0 ? kMaxQ : 1); ++q) v[q] = T(0);
+    for (int m = 0; m < kT - j1; ++m) {
+      const T l = s[(j1 + m) * ld + j0 + c];
+#pragma unroll
+      for (int q = 0; q < kMaxQ; ++q)
+        if (q < nq) v[q] += s[(j1 + (tid >> 5) + 8 * q) * ld + j1 + m] * l;
+    }
+    __syncthreads();  // every thread has read L_RJ
+#pragma unroll
+    for (int q = 0; q < kMaxQ; ++q)
+      if (q < nq) s[(j1 + (tid >> 5) + 8 * q) * ld + j0 + c] = v[q];
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kMaxQ; ++q) {
+      if (q >= nq) continue;
+      const T* row = s + (j1 + (tid >> 5) + 8 * q) * ld + j0;
+      T x = T(0);
+#pragma unroll 8
+      for (int t = 0; t < kNB; ++t) x += row[t] * dinv[t * kLdv<T> + c];
+      v[q] = -x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kMaxQ; ++q)
+      if (q < nq) s[(j1 + (tid >> 5) + 8 * q) * ld + j0 + c] = v[q];
+    for (int e = tid; e < kNB * kNB; e += kTiledThreads)
+      s[(j0 + e / kNB) * ld + j0 + e % kNB] = dinv[(e / kNB) * kLdv<T> + e % kNB];
+    __syncthreads();
+  }
+}
+
+// rows x cols (cols a multiple of 8) from s (row stride ls; zeros if s is
+// null) to g (row stride lg) as 16-byte vectors.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* g, int lg, const T* s, int ls, int rows, int cols) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = 16 / sizeof(T);
+  const int per = cols / kV;
+  for (int q = threadIdx.x; q < rows * per; q += kTiledThreads) {
+    const int r = q / per, c = (q % per) * kV;
+    *reinterpret_cast<V*>(g + static_cast<size_t>(r) * lg + c) =
+        s ? *reinterpret_cast<const V*>(s + r * ls + c) : V{};
+  }
+}
+
+// The tasks of one matrix of nt x nt tiles, in ticket order: group g holds
+//   C(g)                    the chain's step: D(g), the diagonal tile updated
+//                           by step g - 1 (its earlier steps from U tasks),
+//                           factored, L_gg written, inverted into dinv; then
+//                           the tile below it (updated to step g - 1 by a U
+//                           task) times L_gg^-T: L_g+1,g, which C(g + 1) needs;
+//   P(i, g), i = g + 2 ..   the panel: step g - 1, then times L_gg^-T;
+//   U(i, j, g - 1), j > g,  step g - 1 on the rest of the trailing triangle;
+//     i >= j, by columns
+//   U(g + 2, g + 1, g)      the tile below the next diagonal by step g, for
+//                           C(g + 1).
+// Every task's inputs come from tasks with earlier tickets: a CTA waits only
+// on work that CTAs already running hold (no co-residency needed).  A step
+// of the chain is one task, so the chain waits on another CTA once a step,
+// and the next column's work comes before the bulk of step g - 1
+// (look-ahead).
+__host__ __device__ __forceinline__ long long tiled_group(int nt, int g) {
+  const int panel = nt - g - 2 > 0 ? nt - g - 2 : 0;
+  const long long bulk = g >= 1 ? static_cast<long long>(nt - 1 - g) * (nt - g) / 2 : 0;
+  return 1 + panel + bulk + (g + 2 < nt ? 1 : 0);
+}
+__host__ __device__ inline long long tiled_tasks(int nt) {
+  long long n = 0;
+  for (int g = 0; g < nt; ++g) n += tiled_group(nt, g);
+  return n;
+}
+
+// Bytes of shared memory: the ring, overlaid by the diagonal tile (or a
+// product's result on its way out), the inverses of its 32 x 32 diagonal
+// blocks, W^T of the tile factor and the column buffer of
+// chol_diag_rolled; then the ticket.
+template <typename T, int kT>
+__host__ __device__ constexpr size_t tiled_body() {
+  const size_t ring = sizeof(T) * kRing<T, kT> * 2 * kT * kLdc<T>;
+  const size_t diag = sizeof(T) * (kT * kLdt<T, kT> + kT * kLdv<T> + kNB * kLdw<T, kT> + 2 * kNB);
+  return ring > diag ? ring : diag;
+}
+// A product's result into the tile s in shared memory (row stride kLdt),
+// between two CTA barriers, so that it leaves in coalesced 16-byte vectors.
+template <typename T, int kT>
+__device__ __forceinline__ void stage(const TileAcc<T, kT>& acc, T* s) {
+  acc.each([&](int r, int c, T v) { s[r * kLdt<T, kT> + c] = v; });
+  __syncthreads();
+}
+
+// The C tile prefetched for an update's epilogue ([kT][kLdt], after the
+// body), where it fits beside the body: not for f64 at kT = 128, whose
+// diagonal tile and its factor's workspace take 190 KB.
+template <typename T, int kT>
+__host__ __device__ constexpr size_t tiled_cbuf() {
+  return sizeof(T) == 8 && kT == 128 ? 0 : sizeof(T) * kT * kLdt<T, kT>;
+}
+template <typename T, int kT>
+__host__ __device__ constexpr size_t tiled_smem() {
+  return tiled_body<T, kT>() + tiled_cbuf<T, kT>() + 16;
+}
+
+// acc = A B^T (tile_product), staged in the ring's first kT x kLdt (between
+// two CTA barriers); the C tile csrc into the C buffer where there is one.
+// Not inlined: one copy
+// of the product's code serves every task, so that the kernel's code stays
+// small (the chain's factor ran slower beside four inlined copies).
+template <typename T, int kT>
+__device__ __noinline__ void product(const T* a, int lda, int arows, const T* b, int ldb, int brows,
+                                     bool same, const T* csrc, int crows, int ccols) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  T* cbuf =
+      csrc && tiled_cbuf<T, kT>() ? reinterpret_cast<T*>(smem + tiled_body<T, kT>()) : nullptr;
+  TileAcc<T, kT> acc;
+  acc.zero();
+  tile_product<T, kT>(a, lda, arows, b, ldb, brows, same, ring, acc, csrc, crows, ccols, cbuf);
+  stage<T, kT>(acc, ring);
+}
+
+// f(r, c, x) for each 16-byte vector x of the first rows x cols (cols a
+// multiple of 8) of the tile s = the ring (row stride kLdt); ends with a CTA
+// barrier.
+template <typename T, int kT, class F>
+__device__ __forceinline__ void for_vectors(int rows, int cols, F f) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using V = typename Vec16<T>::type;
+  constexpr int kV = 16 / sizeof(T);
+  const int per = cols / kV;
+  T* s = reinterpret_cast<T*>(smem);
+  for (int q = threadIdx.x; q < rows * per; q += kTiledThreads) {
+    const int r = q / per, c = (q % per) * kV;
+    f(r, c, reinterpret_cast<V*>(s + r * kLdt<T, kT> + c));
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float4 sub(const float4& a, const float4& b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+__device__ __forceinline__ double2 sub(const double2& a, const double2& b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+// The vector at (r, c) with the entries right of the diagonal, and every
+// entry of rows from n on, zero.
+__device__ __forceinline__ float4 lower(float4 v, int r, int c, int n) {
+  if (r >= n) return float4{};
+  return make_float4(c <= r ? v.x : 0.f, c + 1 <= r ? v.y : 0.f, c + 2 <= r ? v.z : 0.f,
+                     c + 3 <= r ? v.w : 0.f);
+}
+__device__ __forceinline__ double2 lower(double2 v, int r, int c, int n) {
+  if (r >= n) return double2{};
+  return make_double2(c <= r ? v.x : 0.0, c + 1 <= r ? v.y : 0.0);
+}
+
+// Spins until *p >= v (thread 0 of the CTA), then a CTA barrier.
+__device__ __forceinline__ void wait_cta(const unsigned* p, unsigned v) {
+  if (threadIdx.x == 0) wait_at_least(p, v);
+  __syncthreads();
+}
+// Publishes *p = v once every thread's stores are done: CTA barrier, fence,
+// release.
+__device__ __forceinline__ void publish(unsigned* p, unsigned v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(p, v);
+  }
+}
+
+// Right-looking tiled Cholesky of K (M, M) matrices on a persistent grid;
+// see the note at the top of the file.  A CTA takes tickets from ws[0] in
+// task order (matrix fastest), waits on the counters of the tiles its task
+// reads (ws[1 + k ntri + i (i + 1) / 2 + j]: the steps applied to tile
+// (i, j), j + 1 once it is final; acquire, bounded), runs it and publishes
+// the counters of the tiles it wrote.  The factor is formed in L; the
+// tiles' inverses L_gg^-1 go to dinv ([K][nt - 1][kT][kT]).
+template <typename T, int kT>
+__global__ void __launch_bounds__(kTiledThreads, kT == 64 ? 2 : 1)
+    chol_tiled_kernel(const T* A, T* L, int K, int M, T clamp, unsigned* ws, T* dinv) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  T* sd = ring;  // the diagonal tile, or a product's result, over the ring
+  T* sdi = sd + kT * kLdt<T, kT>;  // [kT / kNB][kNB][kLdv]
+  T* swt = sdi + kT * kLdv<T>;     // [kNB][kLdw]
+  T* scol = swt + kNB * kLdw<T, kT>;
+  T* cbuf = tiled_cbuf<T, kT>() ? reinterpret_cast<T*>(smem + tiled_body<T, kT>()) : nullptr;
+  unsigned* ticket =
+      reinterpret_cast<unsigned*>(smem + tiled_body<T, kT>() + tiled_cbuf<T, kT>());
+  constexpr int ldt = kLdt<T, kT>;
+  using V = typename Vec16<T>::type;
+  const int tid = threadIdx.x;
+  const int nt = (M + kT - 1) / kT;
+  const int ntri = nt * (nt + 1) / 2;
+  const size_t MM = static_cast<size_t>(M) * M;
+  const long long total = K * tiled_tasks(nt);
+  int g = 0;
+  long long g0 = 0;  // this CTA's cursor: group g starts at task g0
+  for (;;) {
+    if (tid == 0) *ticket = atomicAdd(ws, 1u);
+    __syncthreads();
+    const long long tk = *ticket;
+    if (tk >= total) break;
+    const int k = static_cast<int>(tk % K);
+    const long long s = tk / K;
+    unsigned* cnt = ws + 1 + static_cast<size_t>(k) * ntri;
+    auto ctr = [&](int a, int b) { return cnt + a * (a + 1) / 2 + b; };
+    auto tile = [&](const T* base, int a, int b) {
+      return base + k * MM + static_cast<size_t>(a) * kT * M + b * kT;
+    };
+    auto rows = [&](int a) { return imin(kT, M - a * kT); };
+    auto inv_tile = [&](int a) { return dinv + (static_cast<size_t>(k) * (nt - 1) + a) * kT * kT; };
+    // C's vector at (r, c): prefetched into cbuf, or from src past the L1
+    auto cvec = [&](const T* src, int r, int c) {
+      return cbuf ? *reinterpret_cast<const V*>(cbuf + r * ldt + c)
+                  : __ldcg(reinterpret_cast<const V*>(src + static_cast<size_t>(r) * M + c));
+    };
+
+    // out = C - L_i,st L_j,st^T (C: A's tile at step 0, else out), the
+    // products summed from zero; every row of a diagonal tile
+    auto update = [&](int i, int j, int st, T* out) {
+      const T* src = st == 0 ? tile(A, i, j) : out;
+      product<T, kT>(tile(L, i, st), M, rows(i), tile(L, j, st), M, rows(j), i == j, src, rows(i),
+                     rows(j));
+      for_vectors<T, kT>(rows(i), rows(j), [&](int r, int c, V* x) {
+        *reinterpret_cast<V*>(out + static_cast<size_t>(r) * M + c) = sub(cvec(src, r, c), *x);
+      });
+    };
+    // L_ic = C L_cc^-T (C: A's tile at c = 0, else tile (i, c) of L), and
+    // zeros in the mirror tile (c, i) of the upper triangle
+    auto panel = [&](int i, int c) {
+      T* out = const_cast<T*>(tile(L, i, c));
+      product<T, kT>(c >= 1 ? out : tile(A, i, c), M, rows(i), inv_tile(c), kT, kT, false,
+                     nullptr, 0, 0);
+      store_rows<T>(out, M, sd, ldt, rows(i), kT);
+      store_rows<T>(const_cast<T*>(tile(L, c, i)), M, nullptr, 0, kT, rows(i));
+    };
+
+    // the task of group g: the chain's step C(g), P (i, g) or U (i, j, st)
+    while (s >= g0 + tiled_group(nt, g)) g0 += tiled_group(nt, g++);
+    long long o = s - g0;
+    const int np = nt - g - 2 > 0 ? nt - g - 2 : 0;
+    const long long nbulk = tiled_group(nt, g) - 1 - np - (g + 2 < nt ? 1 : 0);
+    if (o == 0) {
+      // C(g), D: step g - 2 from a U task, step g - 1 here, into the
+      // diagonal tile
+      T* dg = const_cast<T*>(tile(L, g, g));
+      const int n = rows(g);
+      if (g >= 1) {
+        if (tid < 2) wait_at_least(tid == 0 ? ctr(g, g) : ctr(g, g - 1), tid == 0 ? g - 1 : g);
+        const T* src = g == 1 ? tile(A, g, g) : dg;
+        product<T, kT>(tile(L, g, g - 1), M, n, tile(L, g, g - 1), M, n, true, src, n, n);
+        for_vectors<T, kT>(kT, kT, [&](int r, int c, V* x) {
+          V v = *x;
+          if (r < n && c <= r) v = sub(cvec(src, r, c), v);  // (n is a multiple of the vector)
+          *x = lower(v, r, c, n);
+        });
+      } else {
+        for_vectors<T, kT>(kT, kT, [&](int r, int c, V* x) {
+          const T* a = tile(A, 0, 0) + static_cast<size_t>(r) * M + c;
+          const V v = r < n && c <= r ? *reinterpret_cast<const V*>(a) : V{};
+          *x = lower(v, r, c, n);
+        });
+      }
+      factor_tile<T, kT>(sd, n, clamp, sdi, swt, scol);
+      store_rows<T>(dg, M, sd, ldt, n, n);
+      if (g + 1 < nt) {
+        invert_tile<T, kT>(sd, sdi);
+        store_rows<T>(inv_tile(g), kT, sd, ldt, kT, kT);
+      }
+      publish(ctr(g, g), g + 1);
+      if (g + 1 < nt) {
+        // C(g), the tile below, at step g - 1, times L_gg^-T
+        wait_cta(ctr(g + 1, g), g);
+        __threadfence();  // L_gg^-1, before it is read back past the L1
+        panel(g + 1, g);
+        publish(ctr(g + 1, g), g + 1);
+      }
+      continue;
+    }
+    int i, j, st;
+    bool is_p = false;
+    if (o <= np) {
+      i = g + 1 + static_cast<int>(o), j = g, st = g - 1, is_p = true;
+    } else if (o <= np + nbulk) {
+      o -= np + 1;
+      st = g - 1;
+      j = g + 1;
+      while (o >= nt - j) o -= nt - j++;
+      i = j + static_cast<int>(o);
+    } else {
+      i = g + 2, j = g + 1, st = g;
+    }
+    T* out = const_cast<T*>(tile(L, i, j));
+    if (st >= 0) {
+      // step st: tile (i, j) has steps 0 .. st - 1, L_i,st and L_j,st are
+      // final (lanes 0-2 of warp 0 poll one counter each)
+      if (tid < 3)
+        wait_at_least(tid == 0 ? ctr(i, j) : ctr(tid == 1 ? i : j, st), tid == 0 ? st : st + 1);
+      update(i, j, st, out);
+    }
+    if (is_p) {
+      __threadfence();  // the update, before it is read back past the L1
+      wait_cta(ctr(g, g), g + 1);
+      panel(i, g);
+      publish(ctr(i, j), g + 1);
+    } else {
+      publish(ctr(i, j), st + 1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// triangular solves: the separator form and the column-tiled form
+// ---------------------------------------------------------------------------
+
+constexpr int kTileThreads = 256;  // both forms: 8 warps
+constexpr int kSepStages = 8;      // separator form: tiles of L in flight per CTA
+constexpr int kColTile = 32;       // column-tiled form: rhs columns per CTA
+
+// Column-tiled form: tiles of L in flight per CTA, and the layout of its x
+// rows.  f32: rows of 32 + 4 (16-byte aligned rows for float4 loads).  f64:
+// rows of 32 with no pad and the two halves of a row swapped in odd rows,
+// so that the four rows a DMMA B fragment reads fall on both bank halves,
+// and a ring of 3 tiles: the x rows of M = 320 and the ring (108 KB) leave
+// room for two CTAs per SM (f64 (40, 320, 176): 0.130 ms with 4 tiles, one
+// CTA per SM and 8 more bytes a row; 0.109 with two CTAs; H100, PERF.md).
+// The ring's depth is a constant: chosen per shape at run time (the
+// deepest that keeps the occupancy) it made every shape 5-25% slower.
+template <typename T>
+constexpr int kColStages = sizeof(T) == 8 ? 3 : 4;
+template <typename T>
+constexpr int kLdx = kColTile + (sizeof(T) == 8 ? 0 : 4);
+template <typename T>
+__device__ __forceinline__ int xoff(int r, int c) {
+  return r * kLdx<T> + (sizeof(T) == 8 ? c ^ ((r & 1) << 3) : c);
 }
 
 // The 32 x 32 block of the row-major (M, M) matrix l at (row0, col0) into
@@ -1577,16 +2087,15 @@ int optin_smem(int* optin) {
 // per matrix (streaming) is faster, from it on the large form is.  Both
 // forms side by side on an H100 (device ms, K in {1, 2, 8, 17, 40}, M from
 // 296 to 640; scripts/chol_forms_ab.py, PERF.md): f32 streaming wins up to
-// M = 392 at K <= 2 and up to 440 at K = 8 ((40, 320): 0.176 against
-// 0.328), the large form from 440 (K <= 2) and 488 (K = 8; (1, 488): 0.381
-// against 0.466); in f64 the large form wins from 296-320 at K <= 2 and
-// from 392 at K >= 8 ((17, 320): 0.338 streaming against 0.408).  More
-// matrices favour one CTA each: at K = 40 streaming wins up to 640 (f32)
-// and 560 (f64).
+// M = 320 at K <= 17 ((1, 320): 0.174 against 0.199) and up to 392 at
+// K = 40 (0.300 against 0.305), the large form from 392 ((1, 392): 0.266
+// against 0.292) and 440 at K = 40 (0.326 against 0.367); f64 the large
+// form wins from 296 at K <= 17 ((17, 320): 0.320 against 0.339), and
+// from 392 at K = 40 ((40, 320): 0.343 against 0.340 streaming).
 template <typename T>
 int chol_large_from(int K) {
-  if (sizeof(T) == 4) return K >= 8 ? 488 : 392;
-  return K >= 8 ? 392 : 296;
+  if (sizeof(T) == 4) return K >= 40 ? 440 : 392;
+  return K >= 40 ? 392 : 296;
 }
 
 // The form of one (K, M, dtype) on a device: resident where the packed
@@ -1594,8 +2103,8 @@ int chol_large_from(int K) {
 // <= 192 on an H100); below chol_large_from(K) streaming, with the deepest
 // W^T that fits beside at least 32 staged panel rows and as many staged
 // rows (multiples of 32, up to one per thread) as then fit; else the large
-// form on a grid of `grid` CTAs, as many as the card holds at once (a
-// cooperative launch needs them all resident).
+// form on kTile-wide tiles, on a grid of as many CTAs as the card
+// holds at once, at most one per task.
 enum class CholForm { kResident, kStreaming, kLarge };
 
 struct CholLaunch {
@@ -1607,7 +2116,6 @@ struct CholLaunch {
 
 template <typename T>
 using CholKernel = void (*)(const T*, T*, int, int, int, T);
-
 template <typename T>
 int plan_chol(int K, int M, CholLaunch* out) {
   int optin = 0;
@@ -1632,44 +2140,75 @@ int plan_chol(int K, int M, CholLaunch* out) {
       }
     }
   }
+  constexpr size_t smem = tiled_smem<T, kTile>();
+  if (smem > cap) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = (M + kTile - 1) / kTile;
+  const long long tasks = static_cast<long long>(K) * tiled_tasks(nt);
+  if (tasks >= 0xffffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_big_kernel<T>,
-                                                        kBigThreads, 0);
+    err = cudaFuncSetAttribute(chol_tiled_kernel<T, kTile>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_tiled_kernel<T, kTile>,
+                                                        kTiledThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  *out = {CholForm::kLarge, 0, 0, 0, sms * per_sm};
+  const long long grid = tasks < static_cast<long long>(sms) * per_sm ? tasks : sms * per_sm;
+  *out = {CholForm::kLarge, 0, 0, smem, static_cast<int>(grid)};
   return 0;
 }
 
+// The large form's workspace: the ticket and the tiles' counters (zeroed
+// on the stream by each launch), then the inverted diagonal tiles.  Bytes.
+size_t tiled_counter_bytes(int K, int M) {
+  const size_t nt = (M + kTile - 1) / kTile;
+  return align_up(sizeof(unsigned) * (1 + K * nt * (nt + 1) / 2), 256);
+}
 template <typename T>
-int launch_chol(const void* A, void* L, int K, int M, double clamp, void* stream) {
+size_t chol_workspace_bytes(const CholLaunch& c, int K, int M) {
+  if (c.form != CholForm::kLarge) return 0;
+  const size_t nt = (M + kTile - 1) / kTile;
+  return tiled_counter_bytes(K, M) + sizeof(T) * static_cast<size_t>(K) * (nt - 1) * kTile * kTile;
+}
+
+// The plan of (device, K, M), made on its first use and kept.
+template <typename T>
+int chol_launch_of(int K, int M, CholLaunch* c) {
   static std::mutex mu;
   static std::map<std::array<int, 3>, CholLaunch> plans;
   int dev = 0;
   if (cudaError_t err = cudaGetDevice(&dev)) return static_cast<int>(err);
-  CholLaunch c;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    const std::array<int, 3> key = {dev, K, M};
-    auto it = plans.find(key);
-    if (it == plans.end()) {
-      if (int err = plan_chol<T>(K, M, &c)) return err;
-      it = plans.emplace(key, c).first;
-    }
-    c = it->second;
+  std::lock_guard<std::mutex> lock(mu);
+  const std::array<int, 3> key = {dev, K, M};
+  auto it = plans.find(key);
+  if (it == plans.end()) {
+    if (int err = plan_chol<T>(K, M, c)) return err;
+    it = plans.emplace(key, *c).first;
   }
+  *c = it->second;
+  return 0;
+}
+
+// Launches the plan's form.  ws holds chol_workspace_bytes (the large form's
+// counters, zeroed here on the stream first, and inverted tiles).
+template <typename T>
+int launch_chol(const void* A, void* L, int K, int M, double clamp, void* ws, void* stream) {
+  CholLaunch c;
+  if (int err = chol_launch_of<T>(K, M, &c)) return err;
   const T* a = static_cast<const T*>(A);
   T* l = static_cast<T*>(L);
   T cl = static_cast<T>(clamp);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c.form == CholForm::kLarge) {
-    void* args[] = {&a, &l, &K, &M, &cl};
-    if (cudaError_t err = cudaLaunchCooperativeKernel(
-            reinterpret_cast<void*>(chol_big_kernel<T>), dim3(c.grid), dim3(kBigThreads), args, 0, s))
-      return static_cast<int>(err);
+    if (!ws) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t cb = tiled_counter_bytes(K, M);
+    if (cudaError_t err = cudaMemsetAsync(ws, 0, cb, s)) return static_cast<int>(err);
+    chol_tiled_kernel<T, kTile><<<c.grid, kTiledThreads, c.smem, s>>>(
+        a, l, K, M, cl, static_cast<unsigned*>(ws),
+        reinterpret_cast<T*>(static_cast<unsigned char*>(ws) + cb));
   } else if (c.form == CholForm::kResident) {
     chol_kernel<T, true><<<K, kCholThreads, c.smem, s>>>(a, l, M, c.kc, c.rs, cl);
   } else {
@@ -1678,12 +2217,21 @@ int launch_chol(const void* A, void* L, int K, int M, double clamp, void* stream
   return static_cast<int>(cudaGetLastError());
 }
 
+// The workspace bytes a launch of (K, M) needs (0 for the one-CTA forms).
+template <typename T>
+int chol_workspace(int K, int M, long long* out) {
+  CholLaunch c;
+  if (int err = chol_launch_of<T>(K, M, &c)) return err;
+  *out = static_cast<long long>(chol_workspace_bytes<T>(c, K, M));
+  return 0;
+}
+
 // The form plan_chol takes for (K, M) on the current device: 0 resident,
 // 1 streaming, 2 large.
 template <typename T>
 int chol_form(int K, int M, int* out) {
   CholLaunch c;
-  if (int err = plan_chol<T>(K, M, &c)) return err;
+  if (int err = chol_launch_of<T>(K, M, &c)) return err;
   *out = static_cast<int>(c.form);
   return 0;
 }
@@ -1943,11 +2491,16 @@ int trsm_form(int K, int M, int S, int* out) {
 
 extern "C" {
 
-int slampp_chol_f32(const void* A, void* L, int K, int M, double clamp, void* stream) {
-  return launch_chol<float>(A, L, K, M, clamp, stream);
+int slampp_chol_f32(const void* A, void* L, int K, int M, double clamp, void* ws,
+                    void* stream) {
+  return launch_chol<float>(A, L, K, M, clamp, ws, stream);
 }
-int slampp_chol_f64(const void* A, void* L, int K, int M, double clamp, void* stream) {
-  return launch_chol<double>(A, L, K, M, clamp, stream);
+int slampp_chol_f64(const void* A, void* L, int K, int M, double clamp, void* ws,
+                    void* stream) {
+  return launch_chol<double>(A, L, K, M, clamp, ws, stream);
+}
+int slampp_chol_workspace(int f64, int K, int M, long long* out) {
+  return f64 ? chol_workspace<double>(K, M, out) : chol_workspace<float>(K, M, out);
 }
 int slampp_trsm_fwd_f32(const void* L, const void* B, void* X, int K, int M, int S,
                          void* ws, void* stream) {

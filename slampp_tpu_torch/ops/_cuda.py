@@ -79,7 +79,7 @@ def load() -> ctypes.CDLL:
             ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"slampp_chol_{dt}")
-                fn.argtypes = [ptr, ptr, i32, i32, f64, ptr]
+                fn.argtypes = [ptr, ptr, i32, i32, f64, ptr, ptr]
                 fn.restype = i32
                 for kind in ("fwd", "bwd"):
                     fn = getattr(lib, f"slampp_trsm_{kind}_{dt}")
@@ -87,6 +87,8 @@ def load() -> ctypes.CDLL:
                     fn.restype = i32
             lib.slampp_chol_resident_max.argtypes = [i32, ctypes.POINTER(i32)]
             lib.slampp_chol_resident_max.restype = i32
+            lib.slampp_chol_workspace.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_longlong)]
+            lib.slampp_chol_workspace.restype = i32
             lib.slampp_chol_form.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
             lib.slampp_chol_form.restype = i32
             lib.slampp_trsm_form.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]

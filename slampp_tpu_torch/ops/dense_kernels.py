@@ -148,6 +148,26 @@ def _launch(name: str, symbol: str, out: torch.Tensor, shape: tuple, *args) -> N
     launch_shapes.add((name, *shape, str(out.dtype).split(".")[1]))
 
 
+_chol_ws: dict = {}  # (device index, dtype, K, M) -> workspace bytes of the kernel's plan
+
+
+def _chol_workspace(dtype: torch.dtype, K: int, M: int, device: torch.device) -> int:
+    """Bytes of scratch the Cholesky kernel's plan for (K, M) needs on
+    ``device`` (the large form's tile counters and inverted diagonal tiles;
+    0 for the one-CTA forms), from the kernel's own plan, kept per shape."""
+    key = (device.index, dtype, K, M)
+    if key not in _chol_ws:
+        from slampp_tpu_torch.ops import _cuda
+
+        lib = _cuda.load()
+        out = ctypes.c_longlong(0)
+        with torch.cuda.device(device):
+            _cuda.check(lib, lib.slampp_chol_workspace(int(dtype == torch.float64), K, M,
+                                                       ctypes.byref(out)), "chol_batched")
+        _chol_ws[key] = out.value
+    return _chol_ws[key]
+
+
 def chol_batched(A: torch.Tensor, clamp: float = 1e-8) -> torch.Tensor:
     """Batched lower Cholesky of (K, M, M) SPD matrices (pivot-frozen, upper
     triangle zeroed).  M must be a multiple of PB (pad with identity)."""
@@ -157,8 +177,11 @@ def chol_batched(A: torch.Tensor, clamp: float = 1e-8) -> torch.Tensor:
     K, M, _ = A.shape
     out = torch.empty_like(A)
     if K:
+        nbytes = _chol_workspace(A.dtype, K, M, A.device)
+        ws = torch.empty(nbytes, dtype=torch.uint8, device=A.device) if nbytes else None
         _launch("chol_batched", f"slampp_chol_{sfx}", out, (K, M, None),
-                A.data_ptr(), out.data_ptr(), K, M, float(clamp))
+                A.data_ptr(), out.data_ptr(), K, M, float(clamp),
+                None if ws is None else ws.data_ptr())
     return out
 
 
@@ -184,8 +207,8 @@ def chol_form(dtype: torch.dtype, K: int, M: int, device="cuda") -> str:
     """The form the Cholesky kernel takes for K (M, M) matrices of ``dtype``
     on ``device``: "resident" (one CTA per matrix, the matrix in shared
     memory), "streaming" (one CTA per matrix, the factor formed in the
-    output) or "large" (every SM on each matrix, one cooperative launch),
-    from the kernel's own plan."""
+    output) or "large" (every SM on each matrix: tiles on a ticketed task
+    graph), from the kernel's own plan."""
     from slampp_tpu_torch.ops import _cuda
 
     lib = _cuda.load()

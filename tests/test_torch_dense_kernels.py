@@ -200,6 +200,171 @@ def _cols_model(L, B, bwd):
     return X
 
 
+def _chol_diag_model(D, clamp):
+    """chol_diag: right-looking over one 32-wide diagonal block, each
+    column's multipliers scaled by the reciprocal of its exact pivot (d <=
+    clamp or NaN frozen at 1e20), each product subtracted in turn."""
+    d = np.tril(D)
+    for j in range(d.shape[0]):
+        piv = d[j, j] if d[j, j] > clamp else d.dtype.type(1e20)
+        ljj = np.sqrt(piv)
+        col = d[j + 1:, j] * (d.dtype.type(1) / ljj)
+        d[j, j], d[j + 1:, j] = ljj, col
+        d[j + 1:, j + 1:] -= np.tril(np.outer(col, col))
+    return d
+
+
+def _factor_tile_model(S, n, clamp):
+    """factor_tile on the n x n lower tile S in place: per 32-wide panel the
+    diagonal block (chol_diag), its inverse (invert_diag), W = a L_d^-T for
+    the rows below, and their products summed before one subtraction."""
+    for j0 in range(0, n, NB):
+        j1 = min(j0 + NB, n)
+        S[j0:j1, j0:j1] = _chol_diag_model(S[j0:j1, j0:j1], clamp)
+        if j1 < n:
+            W = S[j1:n, j0:j1] @ _invert_diag(S[j0:j1, j0:j1], False).T
+            S[j1:n, j0:j1] = W
+            S[j1:n, j1:n] -= np.tril(W @ W.T)
+
+
+def _invert_tile_model(S):
+    """invert_tile: the lower factor S into L^-1 in place, block column by
+    block column from the last: X_JJ = L_JJ^-1, X_RJ = -(X_RR L_RJ) X_JJ."""
+    for j0 in range(S.shape[0] - NB, -1, -NB):
+        j1 = j0 + NB
+        X = _invert_diag(S[j0:j1, j0:j1], False)
+        S[j1:, j0:j1] = -((S[j1:, j1:] @ S[j1:, j0:j1]) @ X)
+        S[j0:j1, j0:j1] = X
+
+
+def _tile_product(X, Y):
+    """X Y^T as the large form sums it: f64 one sum over the depth; f32
+    each 32-deep chunk summed from zero and the chunk sums added in turn."""
+    if X.dtype != np.float32:
+        return X @ Y.T
+    acc = np.zeros((X.shape[0], Y.shape[0]), X.dtype)
+    for c0 in range(0, X.shape[1], NB):
+        acc += X[:, c0:c0 + NB] @ Y[:, c0:c0 + NB].T
+    return acc
+
+
+def _tiled_tasks(nt):
+    """The large form's tasks of one matrix in ticket order, group g by
+    group g: the chain's step C(g) (step g - 1 on tile (g, g), factor,
+    inverse; then tile (g + 1, g) times L_gg^-T), P(i, g) for i >= g + 2
+    (step g - 1, then times L_gg^-T), U(i, j, g - 1) for j > g by columns,
+    and U(g + 2, g + 1, g), the tile below the next diagonal."""
+    for g in range(nt):
+        yield "C", g, g, g - 1
+        for i in range(g + 2, nt):
+            yield "P", i, g, g - 1
+        for j in range(g + 1, nt) if g else ():
+            for i in range(j, nt):
+                yield "U", i, j, g - 1
+        if g + 2 < nt:
+            yield "U", g + 2, g + 1, g
+
+
+def _chol_tiled_model(A, T, clamp):
+    """The large Cholesky form's arithmetic, run task by task in ticket order
+    (matrix fastest): every task's waits on the tiles' counters (steps
+    applied; j + 1 once final) are asserted to hold when it comes up, so the
+    order is topological; each tile takes its steps in order, each step's
+    products summed from zero (a kT x kT product) and subtracted once."""
+    K, M, _ = A.shape
+    nt = -(-M // T)
+    L = np.zeros_like(A)
+    Dinv = np.zeros((K, nt, T, T), A.dtype)
+    cnt = np.zeros((K, nt, nt), int)
+    blk = [slice(a * T, min(M, a * T + T)) for a in range(nt)]
+
+    def update(k, i, j, st):
+        """Tile (i, j) after step st: from A at step 0, else from L."""
+        assert cnt[k, i, j] >= st and cnt[k, i, st] >= st + 1 and cnt[k, j, st] >= st + 1
+        src = A[k] if st == 0 else L[k]
+        return src[blk[i], blk[j]] - _tile_product(L[k, blk[i], blk[st]], L[k, blk[j], blk[st]])
+
+    def panel(k, i, g, C):
+        assert cnt[k, g, g] >= g + 1
+        L[k, blk[i], blk[g]] = _tile_product(C, Dinv[k, g])
+        cnt[k, i, g] = g + 1
+
+    for task in _tiled_tasks(nt):
+        for k in range(K):
+            kind, i, j, st = task
+            if kind == "C":
+                g = i
+                C = update(k, g, g, st) if st >= 0 else A[k, blk[g], blk[g]]
+                n = C.shape[0]
+                S = np.zeros((T, T), A.dtype)
+                S[:n, :n] = np.tril(C)
+                _factor_tile_model(S, n, clamp)
+                L[k, blk[g], blk[g]] = S[:n, :n]
+                if g + 1 < nt:
+                    _invert_tile_model(S)
+                    Dinv[k, g] = S
+                cnt[k, g, g] = g + 1
+                if g + 1 < nt:
+                    assert cnt[k, g + 1, g] >= g
+                    panel(k, g + 1, g, L[k, blk[g + 1], blk[g]] if g else A[k, blk[g + 1], blk[g]])
+            elif kind == "P":
+                panel(k, i, j, update(k, i, j, st) if st >= 0 else A[k, blk[i], blk[j]])
+            else:
+                L[k, blk[i], blk[j]] = update(k, i, j, st)
+                cnt[k, i, j] = st + 1
+    return np.tril(L)
+
+
+@pytest.mark.parametrize("T,case", [(64, "partial"), (64, "frozen"), (128, "partial"),
+                                    (128, "frozen")])
+def test_chol_tiled_model_matches_jax(T, case):
+    """The large Cholesky form's arithmetic (csrc/dense_kernels.cu,
+    chol_tiled_kernel), rehearsed in f64 task by task in ticket order with
+    its counters, against the JAX package's chol_batched (its lax reference
+    on the CPU): 1e-10 relative.  Cases: K = 2 with a partial last tile
+    (M = 200 at T = 64, 328 at T = 128), and frozen pivots (zero rows in
+    the first, a middle and the last tile; L_jj = 1e10, their columns ~0)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from slampp_tpu.ops import dense_kernels as jdk
+
+    rng = np.random.default_rng(41)
+    M = 200 if T == 64 else 328
+    zero = (3, 100, M - 1)
+    A = _spd(rng, 2, M) if case == "partial" else _frozen_case(rng, M=M, zero_rows=zero)
+    L = _chol_tiled_model(A, T, 1e-8)
+    ref = np.asarray(jdk.chol_batched(jnp.asarray(A), clamp=1e-8))
+    assert np.isfinite(L).all()
+    scale = np.abs(ref[np.abs(ref) < 1e9]).max()
+    assert np.abs(L - ref).max() <= 1e-10 * np.abs(ref).max()
+    assert np.abs(np.where(np.abs(ref) < 1e9, L - ref, 0)).max() <= 1e-10 * scale
+    if case == "frozen":
+        for z in zero:
+            assert abs(L[0, z, z] - 1e10) < 1e4
+            assert np.abs(L[0, z + 1:, z]).max(initial=0.0) < 1e-6
+
+
+def test_chol_tiled_model_f32_residual():
+    """The large form's f32 arithmetic (the model above in float32) on a
+    seeded SPD matrix of condition ~1e6: its relative residual max |L L^T -
+    A| / max |A| stays within twice the plain version's."""
+    rng = np.random.default_rng(5)
+    M = 328
+    Q, _ = np.linalg.qr(rng.normal(size=(M, M)))
+    A64 = (Q * np.logspace(0, -6, M)) @ Q.T
+    A64 = (A64 + A64.T)[None] / 2
+    A = A64.astype(np.float32)
+
+    def resid(L):
+        L = L.astype(np.float64)
+        return np.abs(L @ np.swapaxes(L, 1, 2) - A64).max() / np.abs(A64).max()
+
+    plain = resid(dk.chol_batched_plain(torch.from_numpy(A)).numpy())
+    for T in (64, 128):
+        L = _chol_tiled_model(A, T, 1e-8)
+        assert L.dtype == np.float32 and np.isfinite(L).all()
+        assert resid(L) <= 2 * plain, (T, resid(L), plain)
+
+
 @pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("form,case", [
     ("separator", "partial"), ("separator", "frozen"), ("separator", "S43"),
@@ -361,11 +526,12 @@ def test_cuda_chol_largest_m_residual(cuda, dtype, M, tol):
     assert float((L64 @ L64.transpose(1, 2) - A).abs().max() / A.abs().max()) < tol
 
 
-# the first M beyond the one-CTA kernel's old limits used to raise; the
-# large form takes any M that memory holds, so these factor like any other
+# the first M beyond the one-CTA kernel's old limits (f64 3104, f32 6336)
+# raised in an earlier design; the large form takes any M that memory holds,
+# so these factor like any other
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,M", [(torch.float64, 3112), (torch.float32, 6344)])
-def test_cuda_chol_beyond_largest_m_raises(cuda, dtype, M):
+def test_cuda_chol_beyond_one_cta_limit_factors(cuda, dtype, M):
     A = _device_spd(cuda, M)
     L = dk.chol_batched(A.to(dtype))
     torch.cuda.synchronize()
@@ -377,11 +543,11 @@ def test_cuda_chol_beyond_largest_m_raises(cuda, dtype, M):
 
 # the sphere2500 graph's f64 separator (Ms = 3952, also cityTrees10k's
 # sparse-Schur separator) was beyond the one-CTA kernel's largest f64 M
-# (3104), and the exact v3 engine raised there; the large form factors it,
-# and M = 6400 beyond it, as the plain version does
+# (3104), and the exact v3 engine raised there once; the large form
+# factors it, and M = 6400 beyond it, as the plain version does
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [3952, 6400])
-def test_cuda_chol_sphere2500_f64_separator_raises(cuda, M):
+def test_cuda_chol_f64_separator_matches_plain(cuda, M):
     A = _device_spd(cuda, M)
     dk.reset_launches()
     L = dk.chol_batched(A)
@@ -392,16 +558,134 @@ def test_cuda_chol_sphere2500_f64_separator_raises(cuda, M):
     assert float((L - ref).abs().max() / ref.abs().max()) < 1e-10
 
 
+# both sides of each crossover of chol_large_from (measured on an H100
+# with scripts/chol_forms_ab.py): f32 from M = 392, and 440 at K >= 40; f64
+# from 296, and 392 at K >= 40
+CHOL_CROSSOVERS = [
+    (torch.float32, 1, 384, "streaming"), (torch.float32, 1, 392, "large"),
+    (torch.float32, 40, 432, "streaming"), (torch.float32, 40, 440, "large"),
+    (torch.float64, 1, 288, "streaming"), (torch.float64, 1, 296, "large"),
+    (torch.float64, 40, 384, "streaming"), (torch.float64, 40, 392, "large")]
+
+
 # the form the plan takes at the paths' shapes: resident part frames, the
-# sphere's streamed (40, 320) frames, every separator in the large form
+# sphere's streamed (40, 320) frames, sphere1000's (17, 320) f64 frames and
+# every separator in the large form; and both sides of each crossover
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,K,M,form", [
     (torch.float32, 55, 192, "resident"), (torch.float64, 55, 192, "resident"),
-    (torch.float32, 40, 320, "streaming"), (torch.float64, 17, 320, "streaming"),
+    (torch.float32, 40, 320, "streaming"), (torch.float64, 40, 320, "streaming"),
+    (torch.float64, 17, 320, "large"),
     (torch.float32, 1, 488, "large"), (torch.float64, 1, 1472, "large"),
-    (torch.float32, 1, 3952, "large"), (torch.float64, 1, 3952, "large")])
+    (torch.float32, 1, 3952, "large"), (torch.float64, 1, 3952, "large")] + CHOL_CROSSOVERS)
 def test_cuda_chol_forms_at_the_path_shapes(cuda, dtype, K, M, form):
     assert dk.chol_form(dtype, K, M) == form
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,K,M,form", CHOL_CROSSOVERS)
+def test_cuda_chol_crossover_sides_match_plain(cuda, dtype, K, M, form):
+    assert dk.chol_form(dtype, K, M) == form
+    A = _device_frozen(cuda, K, M, ()).to(dtype)
+    _check_large(A, dk.chol_batched(A))
+
+
+def _check_large(A, L, clamp=1e-8, zero=()):
+    """The large form against the plain version: f64 max |kernel - plain|
+    over the largest unfrozen |plain| within 1e-10; f32 relative residual
+    within 1e-4 (over the unfrozen rows and columns); the upper triangle
+    exactly zero; frozen pivots L_jj = 1e10 with their columns ~0."""
+    ref = dk.chol_batched_plain(A, clamp)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(L).all()) and not bool(torch.triu(L, 1).any())
+    keep = [i for i in range(A.shape[1]) if i not in zero]
+    if A.dtype == torch.float64:
+        scale = float(ref[:, keep][:, :, keep].abs().max())
+        assert float((L - ref).abs().max()) < 1e-10 * scale
+    else:
+        LLt = (L.double() @ L.double().transpose(1, 2))[:, keep][:, :, keep]
+        Ak = A.double()[:, keep][:, :, keep]
+        assert float((LLt - Ak).abs().max() / Ak.abs().max()) < 1e-4
+    for z in zero:
+        assert abs(float(L[0, z, z]) - 1e10) < 1e4
+        if z + 1 < A.shape[1]:
+            assert float(L[:, z + 1:, z].abs().max()) < 1e-6
+
+
+def _device_frozen(cuda, K, M, zero, seed=3):
+    """K seeded PSD matrices made on the card, rows and columns ``zero``
+    exactly zero (frozen pivots in any precision), the rest shifted by 1."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    G = torch.randn(K, M, M, device=cuda, dtype=torch.float64, generator=gen)
+    G[:, list(zero), :] = 0
+    A = G @ G.transpose(1, 2) / M
+    keep = [i for i in range(M) if i not in zero]
+    A[:, keep, keep] += 1.0
+    return A
+
+
+# the large form (64-wide tiles on a ticketed task graph) at the paths'
+# separators, against the plain version
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,M", [(torch.float32, 488), (torch.float64, 488),
+                                     (torch.float32, 1472), (torch.float64, 1472),
+                                     (torch.float32, 3952), (torch.float64, 3952),
+                                     (torch.float32, 5344), (torch.float64, 5344),
+                                     (torch.float64, 6400)])
+def test_cuda_chol_large_form_matches_plain(cuda, dtype, M):
+    A = _device_spd(cuda, M).to(dtype)
+    assert dk.chol_form(dtype, 1, M) == "large"
+    dk.reset_launches()
+    L = dk.chol_batched(A)
+    assert dk.launches["chol_batched"] == 1
+    _check_large(A, L)
+
+
+# frozen pivots at a separator M (in the first, a middle and the last
+# tile), and two matrices at a large M
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,M,zero", [(1, 3952, (7, 2000, 3951)), (2, 2048, ())],
+                         ids=["frozen", "K2"])
+def test_cuda_chol_large_form_frozen_and_batched(cuda, dtype, K, M, zero):
+    A = _device_frozen(cuda, K, M, zero).to(dtype)
+    assert dk.chol_form(dtype, K, M) == "large"
+    _check_large(A, dk.chol_batched(A, clamp=1e-8), zero=zero)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_chol_large_form_is_deterministic(cuda, dtype):
+    """Each tile takes its steps in order and every sum has a fixed order:
+    two launches on the same input give the same bits."""
+    A = _device_spd(cuda, 1472).to(dtype)
+    assert torch.equal(dk.chol_batched(A), dk.chol_batched(A))
+
+
+@pytest.mark.gpu
+def test_cuda_chol_large_form_graph_replay(cuda):
+    """The large form (its workspace zeroed on the stream, then one launch,
+    no cooperative launch) captured in a CUDA graph and replayed on new
+    matrices: each replay within 1e-10 of the plain version and equal to an
+    eager launch."""
+    M, f64 = 1472, torch.float64
+    A = _device_spd(cuda, M)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        dk.chol_batched(A)  # plans and attributes before the capture
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        L = dk.chol_batched(A)
+    for seed in (5, 6):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        G = torch.randn(1, M, M, device=cuda, dtype=f64, generator=gen)
+        A.copy_(G @ G.transpose(1, 2) / M + torch.eye(M, device=cuda, dtype=f64))
+        graph.replay()
+        torch.cuda.synchronize()
+        _check_large(A, L)
+        assert torch.equal(L, dk.chol_batched(A))
 
 
 def _check_trsm(bwd, L, B):
