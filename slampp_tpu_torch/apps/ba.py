@@ -99,13 +99,20 @@ def run_venice(n_cams: int = 871, n_points: int = 110_000, mean_track: int = 10,
 def profile_venice(n_cams: int = 871, n_points: int = 110_000, mean_track: int = 10,
                    device="cuda", sc_f64: bool = False, pair_f32: bool = True,
                    top: int = 12) -> dict:
-    """Where one warm LM step of the venice scene goes: the ``ba.*`` ranges'
-    device spans, busy and idle (``apps/manhattan._profiled``)."""
+    """Where one warm LM iteration of the venice scene goes (an ``optimize``
+    of one iteration from the start: the chi2 there, the step, its chi2 test
+    and the accept or reject): the ``ba.*`` spans' device spans and counts,
+    busy and idle (``apps/manhattan._profiled``)."""
     from slampp_tpu_torch.apps.manhattan import _profiled
 
     device = torch.device(device)
     solver, t_gen, t_sym = venice_solver(n_cams, n_points, mean_track, device, sc_f64, pair_f32)
-    step = lambda: float(solver.step(solver._cams, solver._lms, 1e-3)[2])  # noqa: E731
+    start = (solver._cams, solver._lms)
+
+    def step():
+        solver._cams, solver._lms = start
+        solver.optimize(max_iterations=1, min_dx_norm=0.0)
+
     step()
     return {"n_obs": solver.plan.n_obs, "sc_f64": sc_f64, "t_symbolic_s": t_sym,
             **_profiled(step, device, top, prefixes=("ba.",))}

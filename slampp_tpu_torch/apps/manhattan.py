@@ -35,8 +35,10 @@ print ``run_native`` (or ``profile_native``), ``run_marginals`` and
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -121,10 +123,26 @@ def run(n_poses: int, device, n_iters: int = 5, target: int = 64, refine: int = 
     }
 
 
+_DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _union_us(intervals) -> float:
+    """The length of the union of (start, end) intervals: streams that run
+    side by side count once."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
 def _profiled(fn, device: torch.device, top: int, prefixes=("v3.",)) -> dict:
     """torch.profiler over one call of ``fn``: its wall time, the device's
-    busy time and idle share, the device span of each range whose name
-    starts with one of ``prefixes`` and the ``top`` kernels by device
+    busy time (the union of the intervals of its kernels, copies and
+    memsets) and idle share, the device span and count of each span whose
+    name starts with one of ``prefixes`` (``utils/spans.py``: the solve,
+    its iterations and their layers) and the ``top`` kernels by device
     time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -146,7 +164,13 @@ def _profiled(fn, device: torch.device, top: int, prefixes=("v3.",)) -> dict:
         (e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith(prefixes)),
         key=lambda e: -e.self_device_time_total,
     )
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    with tempfile.TemporaryDirectory() as tmp:  # the trace's categories name the device ops
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)["traceEvents"]
+    busy_us = _union_us((ev["ts"], ev["ts"] + ev.get("dur", 0.0)) for ev in trace
+                        if ev.get("ph") == "X" and ev.get("cat") in _DEVICE_OPS)
     return {
         "wall_us": wall_us, "device_busy_us": busy_us,
         "device_idle_share": 1.0 - busy_us / wall_us, "layers": layers,

@@ -21,9 +21,18 @@ from a dense Hessian:
 
 The JAX module kept every per-observation array batch-last for the TPU's
 tiling; the port keeps them batch-first, as torch's batched products take
-them.  Each step marks its layers as profiler ranges (``ba.jacobians``,
-``ba.landmarks``, ``ba.pairs``, ``ba.sc_build``, ``ba.sc_factor``,
-``ba.backsub``; ``apps/ba.py --profile`` reads them).
+them.  Its profiler spans (``utils/spans.py``: ``record_function`` ranges
+while a profiler runs, one shared null context otherwise) form one tree:
+
+  ba.solve             BigBASolver.optimize, one request
+    ba.chi2            the chi2 at the start
+    ba.iteration       each pass of the LM loop: step, host reads, gain test
+      ba.jacobians, ba.landmarks, ba.pairs, ba.sc_build, ba.sc_factor,
+      ba.backsub       the step's layers
+      ba.chi2          the test's chi2 (every ``ba_chi2_only``)
+      ba.lm_accept or ba.lm_reject   the branch the gain test takes
+
+``apps/ba.py --profile`` and the benchmark's readers read them.
 """
 
 from __future__ import annotations
@@ -33,7 +42,6 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import scipy.sparse as sp
 import torch
-from torch.profiler import record_function
 
 from slampp_tpu_torch.geometry import camera as cam_geo
 from slampp_tpu_torch.models import ba as ba_models
@@ -43,6 +51,7 @@ from slampp_tpu_torch.ops.segments import (
     plan_grouped_segments,
 )
 from slampp_tpu_torch.utils.device import require_device
+from slampp_tpu_torch.utils.spans import span, spanned
 
 
 class PairBucket(NamedTuple):
@@ -282,7 +291,7 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
     chi2, denom); ``sc_f64`` factors SC in float64, else equilibrated
     float32 with one float64 refinement."""
     n_c = plan.n_c
-    with record_function("ba.jacobians"):
+    with span("ba.jacobians"):
         r, (Jp, Jc) = ba_models._edge_p2c_jacobians(
             (lm_states[plan.obs_lm], cam_states[plan.obs_cam]), plan.obs_uv)
         W = plan.obs_info
@@ -291,7 +300,7 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
         WJc = W @ Jc  # (m, 2, 6)
         WJp = W @ Jp  # (m, 2, 3)
 
-    with record_function("ba.landmarks"):
+    with span("ba.landmarks"):
         D = grouped_segsum_first(Jp.transpose(1, 2) @ WJp, plan.lm_grp)  # (n_l, 3, 3)
         g_l = grouped_segsum_first(torch.einsum("mri,mr->mi", WJp, r), plan.lm_grp)  # (n_l, 3)
         D = D + alpha * torch.eye(3, dtype=D.dtype, device=D.device)
@@ -303,10 +312,10 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
         B = Jc.transpose(1, 2) @ WJp  # (m, 6, 3)
         BD = B @ Dinv[plan.obs_lm]  # (m, 6, 3)
 
-    with record_function("ba.pairs"):
+    with span("ba.pairs"):
         mass = _pair_sc_mass(plan, BD, B, pair_f32=pair_f32)
 
-    with record_function("ba.sc_build"):
+    with span("ba.sc_build"):
         Gg = mass[plan.sc_inv_map].to(r.dtype).reshape(n_c, n_c, 6, 6)
         # block (ci, cj) += the transpose of block (cj, ci)
         SCb = -(Gg + Gg.permute(1, 0, 3, 2))
@@ -320,7 +329,7 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
         r2 = grouped_segsum_first(torch.einsum("mik,mk->mi", BD, g_l[plan.obs_lm]), plan.cam_grp)
         rhs = -(g_c - r2).reshape(-1)
 
-    with record_function("ba.sc_factor"):
+    with span("ba.sc_factor"):
         if sc_f64:
             L, info = torch.linalg.cholesky_ex(0.5 * (SC + SC.T))
             L = torch.where(info == 0, L, torch.nan)
@@ -338,7 +347,7 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
             dx_c = solve32(rhs)
             dx_c = dx_c + solve32(rhs - SC @ dx_c)
 
-    with record_function("ba.backsub"):
+    with span("ba.backsub"):
         # dx_l = Dinv (-g_l - sum_e B_e^T dx_c[cam_e])
         dxc_blocks = dx_c.reshape(n_c, 6)
         bt = torch.einsum("mik,mi->mk", B, dxc_blocks[plan.obs_cam])  # (m, 3)
@@ -352,6 +361,7 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
     return new_cams, new_lms, torch.sqrt(sq), chi2, denom
 
 
+@spanned("ba.chi2")
 def ba_chi2_only(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: torch.Tensor):
     """Residual-only chi2 (no Jacobians, no SC): the LM loop's accept /
     reject test, so that a rejected step costs O(m) (reference
@@ -409,6 +419,7 @@ class BigBASolver:
                               dtype=torch.float64, device=self.device)
         return cam_ids, lm_ids, cams, lms
 
+    @spanned("ba.solve")
     def optimize(self, max_iterations: int = 5, min_dx_norm: float = 0.01) -> int:
         cam_ids, lm_ids, cams, lms = self._prepare()
         alpha = self.tau * 1e3  # a scale-free start, adapted by the gain ratio
@@ -416,25 +427,30 @@ class BigBASolver:
         last_error = float(ba_chi2_only(self.plan, cams, lms))
         applied = 0
         for it in range(max_iterations):
-            nc, nl, dxn, _, denom = self.step(cams, lms, alpha)
-            dxn = float(dxn)
-            if not np.isfinite(dxn) or dxn <= min_dx_norm:
-                break
-            f_error = float(ba_chi2_only(self.plan, nc, nl))
-            rho = (last_error - f_error) / max(float(denom), 1e-300)
-            if rho > 0:
-                alpha *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
-                nu = 2.0
-                cams, lms = nc, nl
-                last_error = f_error
-                applied += 1
-                if self.verbose:
-                    print(f"BigBA iter {it}: accepted chi2={f_error:.2f} alpha={alpha:.2e}")
-            else:
-                alpha *= nu
-                nu *= 2.0
-                if self.verbose:
-                    print(f"BigBA iter {it}: rejected chi2={f_error:.2f} alpha={alpha:.2e}")
+            with span("ba.iteration"):
+                nc, nl, dxn, _, denom = self.step(cams, lms, alpha)
+                dxn = float(dxn)
+                if not np.isfinite(dxn) or dxn <= min_dx_norm:
+                    break
+                f_error = float(ba_chi2_only(self.plan, nc, nl))
+                rho = (last_error - f_error) / max(float(denom), 1e-300)
+                if rho > 0:
+                    with span("ba.lm_accept"):
+                        alpha *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
+                        nu = 2.0
+                        cams, lms = nc, nl
+                        last_error = f_error
+                        applied += 1
+                        if self.verbose:
+                            print(f"BigBA iter {it}: accepted chi2={f_error:.2f} "
+                                  f"alpha={alpha:.2e}")
+                else:
+                    with span("ba.lm_reject"):
+                        alpha *= nu
+                        nu *= 2.0
+                        if self.verbose:
+                            print(f"BigBA iter {it}: rejected chi2={f_error:.2f} "
+                                  f"alpha={alpha:.2e}")
         self._cams, self._lms = cams, lms
         if self.system is not None:
             cams_np, lms_np = cams.cpu().numpy(), lms.cpu().numpy()

@@ -28,8 +28,16 @@ inside the loop), as it was an XLA call outside any Pallas kernel in JAX.
 
 ``optimize_fused`` runs the iterations as a Python loop that never reads a
 value back to the host; the caller's first read of a result is its one sync.
-Each step marks its layers as profiler ranges (v3.assemble, v3.factor,
-v3.backsolve, v3.update; apps/manhattan.py ``profile`` reads them).
+Its profiler spans (``utils/spans.py``: ``record_function`` ranges while a
+profiler runs, one shared null context otherwise) form one tree:
+
+  v3.solve            optimize_fused, one request
+    v3.iteration      each step (GN, gn_step_prior, damped_step, dogleg_step)
+      v3.assemble, v3.factor (v3.separator inside), v3.backsolve, v3.update
+
+The time in ``v3.solve`` outside the four layer spans is the loop's own
+Python, ``replace_states`` and the final chi2 (apps/manhattan.py
+``profile`` and the benchmark's readers read the tree).
 
 The other steps the JAX package offers go through the same factorization:
 ``gn_step_prior`` (a dense prior on a forced separator, the windowed
@@ -45,7 +53,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from slampp_tpu_torch.core import block_assembly, partition as part_mod
 from slampp_tpu_torch.core.assembly import apply_update, apply_update_gated, graph_chi2
@@ -54,6 +61,7 @@ from slampp_tpu_torch.graph.types import get_vertex_type
 from slampp_tpu_torch.ops import dense_kernels as dk
 from slampp_tpu_torch.ops.segments import GroupedSegments, grouped_segsum_last
 from slampp_tpu_torch.utils.device import require_device
+from slampp_tpu_torch.utils.spans import span, spanned
 
 _CR_BASE = 8  # chain length at which cyclic reduction hands off to a dense factorization
 
@@ -228,6 +236,7 @@ class PartitionedSolver:
             self.mixed_precision,
         )
 
+    @spanned("v3.solve")
     def optimize_fused(self, graph: GraphArrays, n_iters: int = 5):
         """``n_iters`` GN steps with no host sync in between: (states,
         dx_norm of the last step, chi2 before the first, chi2 after the
@@ -242,10 +251,11 @@ class PartitionedSolver:
 
     def _assemble(self, graph: GraphArrays):
         self.ensure_symbolic()
-        with record_function("v3.assemble"):
+        with span("v3.assemble"):
             return block_assembly.assemble_blocks_sorted(
                 graph, self.block_plan, hessian_f32=self.mixed_precision)
 
+    @spanned("v3.iteration")
     def gn_step_prior(self, graph: GraphArrays, sc_prior, rhs_prior, update_threshold=0.0):
         """One GN step on H + prior: H[sep, sep] += sc_prior, g[sep] +=
         rhs_prior, dx = -(H + P)^-1 (g + p).
@@ -260,10 +270,11 @@ class PartitionedSolver:
         # b64 = -g on the fine rows, so the separator rhs adds -rhs_prior
         x = _v3_solve_refined(self.plan, vals, -rhs, self.refine_iters, self.damping_rel,
                               self.mixed_precision, sc_prior=sc, gs_prior=-rp)
-        with record_function("v3.update"):
+        with span("v3.update"):
             dx = block_assembly.scatter_dx(self.block_plan, x)
             return apply_update_gated(graph, dx, update_threshold), torch.linalg.norm(dx), chi2
 
+    @spanned("v3.iteration")
     def damped_step(self, graph: GraphArrays, alpha: float):
         """One LM-damped step (lambda + alpha I) through the partitioned
         engine (reference ApplyDamping, NonlinearSolver_Lambda_LM.h:235-243).
@@ -277,12 +288,13 @@ class PartitionedSolver:
         vals[: p.n, d, d] += float(alpha)
         x = _v3_solve_refined(p, vals, -rhs, self.refine_iters, self.damping_rel,
                               self.mixed_precision)
-        with record_function("v3.update"):
+        with span("v3.update"):
             dx = block_assembly.scatter_dx(bp, x)
             gvec = block_assembly.scatter_dx(bp, rhs[: p.n])
             denom = torch.dot(dx, alpha * dx - gvec)
             return apply_update(graph, dx), denom, torch.linalg.norm(dx), chi2
 
+    @spanned("v3.iteration")
     def dogleg_step(self, graph: GraphArrays, delta: float, relin_threshold: float = 0.0):
         """One Powell-dogleg step through the partitioned engine (reference
         CNonlinearSolver_Lambda_DL batch semantics).  Returns (new_states,
@@ -292,7 +304,7 @@ class PartitionedSolver:
         grad = rhs[: p.n]  # permuted fine-layout gradient (n, bs)
         x_gn = _v3_solve_refined(p, vals, -rhs, self.refine_iters, self.damping_rel,
                                  self.mixed_precision)
-        with record_function("v3.update"):
+        with span("v3.update"):
             vals64 = vals.to(grad.dtype)
             gTg = torch.sum(grad * grad)
             gHg = torch.sum(grad * _spmv_fine(p, vals64, grad))
@@ -649,7 +661,7 @@ def _chain_rhs_reduce(p: V3Plan, v):
 def _separator(p: V3Plan, Ass, gs, C, v):
     """Factor SC = Ass - place(C) with the Cholesky kernel; rhs_s = gs - place(v)."""
     SC = Ass - _pad_sq(_chain_sc_reduce(p, C), p.Ms)
-    with record_function("v3.separator"):  # nested in v3.factor
+    with span("v3.separator"):  # nested in v3.factor
         Ls = dk.chol_batched(SC[None].contiguous())  # (1, Ms, Ms)
     rhs_s = gs - F.pad(_chain_rhs_reduce(p, v), (0, p.Ms - p.SB * p.bs))
     return Ls, rhs_s
@@ -786,9 +798,9 @@ def _v3_solve_refined(p: V3Plan, vals64, b64, refine: int, damping_rel: float,
         raise ValueError("gs_prior requires sc_prior")
     if not mixed:
         b_f = torch.cat([b64[:n], b64.new_zeros(1, bs)], 0)
-        with record_function("v3.factor"):
+        with span("v3.factor"):
             L, WU, y, Ls, rhs_s = _factor32(p, vals64[: p.nnzb], b_f, sc_prior, gs_prior)
-        with record_function("v3.backsolve"):
+        with span("v3.backsolve"):
             return _backsolve(p, L, WU, Ls, y, rhs_s)
     d = torch.arange(bs, device=vals64.device)
     s = 1.0 / torch.sqrt(torch.clamp_min(vals64[:n, d, d], 1e-30))  # (n, bs)
@@ -806,14 +818,14 @@ def _v3_solve_refined(p: V3Plan, vals64, b64, refine: int, damping_rel: float,
             gsp = (sp * gs_prior).float()
 
     if p.ch_ok:
-        with record_function("v3.factor"):
+        with span("v3.factor"):
             levels, root, Uflat, Xu, Xg, Ls, rhs_s = _chain_factor32(p, vals32, b32, scp, gsp)
-        with record_function("v3.backsolve"):
+        with span("v3.backsolve"):
             z = _chain_backsolve(p, Xu, Xg, Ls, rhs_s)
     else:
-        with record_function("v3.factor"):
+        with span("v3.factor"):
             L, WU, y, Ls, rhs_s = _factor32(p, vals32, b32, scp, gsp)
-        with record_function("v3.backsolve"):
+        with span("v3.backsolve"):
             z = _backsolve(p, L, WU, Ls, y, rhs_s)
     x = s * z.double()
 
@@ -837,13 +849,14 @@ def _v3_solve_refined(p: V3Plan, vals64, b64, refine: int, damping_rel: float,
     return x
 
 
+@spanned("v3.iteration")
 def _v3_gn_step_impl(graph: GraphArrays, bp, p: V3Plan, refine: int,
                      damping_rel: float, mixed: bool = True):
     # mixed mode assembles the Hessian blocks in float32; rhs and chi2 stay
     # float64, so the GN fixed point is unchanged
-    with record_function("v3.assemble"):
+    with span("v3.assemble"):
         vals, rhs, chi2 = block_assembly.assemble_blocks_sorted(graph, bp, hessian_f32=mixed)
     x = _v3_solve_refined(p, vals, -rhs, refine, damping_rel, mixed)
-    with record_function("v3.update"):
+    with span("v3.update"):
         dx = block_assembly.scatter_dx(bp, x)
         return apply_update(graph, dx), torch.linalg.norm(dx), chi2

@@ -38,7 +38,6 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from slampp_tpu_torch.core import assembly
 from slampp_tpu_torch.graph.system import GraphArrays, GraphSystem
@@ -48,6 +47,7 @@ from slampp_tpu_torch.ops.segments import (GroupedSegments, grouped_segsum_first
                                            plan_grouped_segments)
 from slampp_tpu_torch.ops.small_blocks import inverse_spd_small
 from slampp_tpu_torch.utils.device import require_device
+from slampp_tpu_torch.utils.spans import span
 
 
 class SparseSchurPlan(NamedTuple):
@@ -407,7 +407,7 @@ class SparseSchurSolver:
         bs, dl, n_p = p.bs, p.dl, p.n_p
         (Hii, Hjj, Hij, gi, gj, Hpp, gp, Dle, gle, B, chi2) = terms
 
-        with record_function("ss.landmarks"):
+        with span("ss.landmarks"):
             D0 = grouped_segsum_first(Dle, p.lm_grp)  # (n_l, dl, dl) undamped
             g_l = grouped_segsum_first(gle, p.lm_grp)  # (n_l, dl)
             D = D0 + alpha * torch.eye(dl, dtype=D0.dtype, device=D0.device)
@@ -417,10 +417,10 @@ class SparseSchurSolver:
             Dinv = inverse_spd_small(D)
             BD = torch.einsum("eij,ejk->eik", B, Dinv[p.pl_lm])  # (n_pl, bs, dl)
 
-        with record_function("ss.pairs"):  # pair corrections -B_e Dinv_lm B_f^T
+        with span("ss.pairs"):  # pair corrections -B_e Dinv_lm B_f^T
             pair_c = -torch.einsum("tik,tjk->tij", BD[p.pair_e], B[p.pair_f])
 
-        with record_function("ss.assemble"):
+        with span("ss.assemble"):
             # fine-slot assembly: concatenated in routing order, the pose-pose
             # H_ij blocks transposed where flagged (no other term ever is)
             Hij = torch.where(p.hij_tflag[:, None, None], Hij.transpose(1, 2), Hij)
@@ -446,7 +446,7 @@ class SparseSchurSolver:
         x_perm = v3._v3_solve_refined(v3p, vals_p, -rhs_p, self.refine_iters, self.damping_rel,
                                       self.mixed_precision)  # (n_p, bs) permuted
 
-        with record_function("ss.backsub"):
+        with span("ss.backsub"):
             # landmark back-substitution: dx_l = Dinv (-g_l - B^T dx_pose)
             x_pose = x_perm[p.inv_map]  # (n_p, bs) original order
             bt = torch.einsum("eik,ei->ek", B, x_pose[p.pl_pose])  # (n_pl, dl)
@@ -512,7 +512,7 @@ class SparseSchurSolver:
         """(new_states, denom, dx_norm, chi2): the PartitionedSolver
         contract, denom the LM gain ratio's dx . (alpha dx - g)."""
         self.ensure_symbolic()
-        with record_function("ss.edge_terms"):
+        with span("ss.edge_terms"):
             terms = self._edge_terms(graph)
         dx, gvec, chi2, _ = self._solve_from_terms(graph, terms, alpha)
         denom = torch.dot(dx, alpha * dx - gvec)

@@ -38,12 +38,12 @@ from typing import Callable, List, Sequence
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from slampp_tpu_torch.core import assembly
 from slampp_tpu_torch.graph.system import EdgeArrays, GraphArrays
 from slampp_tpu_torch.linear.dense import solve_dense
 from slampp_tpu_torch.utils.device import require_device
+from slampp_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -92,7 +92,7 @@ class Mesh:
         """Sums ``t`` (contiguous) over the ranks, in place (``jax.lax.psum``)."""
         if not t.is_contiguous():
             raise ValueError("Mesh.all_reduce: the collective needs a contiguous tensor")
-        with record_function("dist.allreduce"):
+        with span("dist.allreduce"):
             ev = self._span()
             t0 = ev[0].record() if ev else time.perf_counter()
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
@@ -109,7 +109,7 @@ class Mesh:
         """Every rank's ``t`` (equal shapes), concatenated along dim 0 in
         rank order."""
         parts = [torch.empty_like(t) for _ in range(self.world)]
-        with record_function("dist.allgather"):
+        with span("dist.allgather"):
             dist.all_gather(parts, t.contiguous(), group=self.group)
         return torch.cat(parts, 0)
 

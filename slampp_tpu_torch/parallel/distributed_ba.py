@@ -36,7 +36,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from slampp_tpu_torch.linear.ba_schur import (
     BASchurPlan,
@@ -51,6 +50,7 @@ from slampp_tpu_torch.linear.dense import solve_spd
 from slampp_tpu_torch.models import ba as ba_models
 from slampp_tpu_torch.ops.segments import grouped_segsum_first
 from slampp_tpu_torch.parallel.distributed import Mesh
+from slampp_tpu_torch.utils.spans import span
 
 F64 = torch.float64
 
@@ -143,7 +143,7 @@ def _local_terms(sh: BigBAShards, alpha):
     """The rank's per-observation terms: (chi2, B, BD, D^-1, g_l, g_c,
     H_cc's block diagonal), B_e = J_c^T W J_p, BD_e = B_e D_l^-1."""
     p = sh.plan
-    with record_function("dist.jacobians"):
+    with span("dist.jacobians"):
         r, (Jp, Jc) = ba_models._edge_p2c_jacobians(
             (sh.lm_states[p.obs_lm], sh.cam_states[p.obs_cam]), p.obs_uv)
         W = p.obs_info
@@ -164,7 +164,7 @@ def _sc_part(sh: BigBAShards, B, BD, Hcc, out):
     """Writes the rank's SC part, H_cc's blocks minus the pair-reduced mass
     (float64 pair products, mirrored G + G^T), into ``out`` (6 n_c, 6 n_c)."""
     n_c = sh.plan.n_c
-    with record_function("dist.pairs"):
+    with span("dist.pairs"):
         mass = _pair_sc_mass(sh.plan, BD, B, pair_f32=False)
         Gg = mass[sh.plan.sc_inv_map].reshape(n_c, n_c, 6, 6)
         SCb = -(Gg + Gg.permute(1, 0, 3, 2))
@@ -189,7 +189,7 @@ def distributed_big_ba_step(shards: BigBAShards, mesh: Mesh, alpha):
     buf = torch.empty(N * N + 2 * N + 1, dtype=F64, device=mesh.device)
     SC = buf[: N * N].view(N, N)
     _sc_part(shards, B, BD, Hcc, SC)
-    with record_function("dist.pairs"):
+    with span("dist.pairs"):
         r2 = grouped_segsum_first(torch.einsum("mik,mk->mi", BD, g_l[p.obs_lm]), p.cam_grp)
         buf[N * N: N * N + N] = -(g_c - r2).reshape(-1)
         buf[N * N + N: -1] = g_c.reshape(-1)
@@ -197,11 +197,11 @@ def distributed_big_ba_step(shards: BigBAShards, mesh: Mesh, alpha):
     mesh.all_reduce(buf)
     rhs, g_c_tot, chi2 = buf[N * N: N * N + N], buf[N * N + N: -1], buf[-1]
 
-    with record_function("dist.sc_factor"):
+    with span("dist.sc_factor"):
         _damp_cameras(SC, alpha, shards.anchor_cam)
         dx_c = torch.cholesky_solve(rhs[:, None], _chol_lower(SC))[:, 0]
 
-    with record_function("dist.backsub"):
+    with span("dist.backsub"):
         dxc_blocks = dx_c.view(n_c, 6)
         bt = torch.einsum("mik,mi->mk", B, dxc_blocks[p.obs_cam])
         dx_l = torch.einsum("lij,lj->li", Dinv, -g_l - grouped_segsum_first(bt, p.lm_grp))
@@ -415,7 +415,7 @@ def distributed_big_ba_marginals(shards: BigBAShards, mesh: Mesh, alpha=0.0,
     SC = torch.empty((N, N), dtype=F64, device=mesh.device)
     _sc_part(shards, B, BD, Hcc, SC)
     mesh.all_reduce(SC)
-    with record_function("dist.sc_factor"):
+    with span("dist.sc_factor"):
         _damp_cameras(SC, alpha, shards.anchor_cam)
         Scc = torch.cholesky_inverse(_chol_lower(SC))
         Scc_b = Scc.view(n_c, 6, n_c, 6).permute(0, 2, 1, 3).contiguous()
@@ -423,7 +423,7 @@ def distributed_big_ba_marginals(shards: BigBAShards, mesh: Mesh, alpha=0.0,
         ids = torch.arange(n_c, device=mesh.device)
         cam_cov = Scc_b[ids, ids]
 
-    with record_function("dist.backsub"):
+    with span("dist.backsub"):
         qe, qf, qs, qend = build_lm_pair_plan(shards)
         dummy = qe.shape[0]  # a pair row of the zero observation p.n_obs
         pad = torch.full((1,), p.n_obs, dtype=qe.dtype, device=qe.device)
