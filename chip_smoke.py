@@ -30,6 +30,12 @@ the run with a non-zero exit code and no result line:
               (trsm-graph), and one large-form Cholesky at (1, 1472) f64
               replayed on two new matrices, each within TOL_F64 of the plain
               version and equal bit for bit to an eager launch (chol-graph);
+              then the BA reprojection kernel (ops/ba_kernels.py), both
+              forms, at venice871's 2,792,206 observations against its
+              plain version: each output within 1e-12 of the plain one's
+              largest entry, chi2 the same bits over repeated calls, device
+              ms beside the byte bound and the plain version's ms
+              (ba-kernels);
   4. main     manhattan3500, mixed precision, chain mode, target 64,
               refine 0, 5 fused GN iterations; chi2 within 5e-3 of the f64
               oracle 404.504, every kernel launched by that run;
@@ -474,6 +480,9 @@ REPLACES = {
     "trsm_lower_batched": "slampp_tpu/ops/dense_kernels.py:215",
     "trsm_lower_t_batched": "slampp_tpu/ops/dense_kernels.py:236",
 }
+# the BA reprojection kernel replaces no Pallas kernel
+BA_SOURCE = "slampp_tpu_torch/csrc/ba_kernels.cu"
+BA_REPLACES = "none: slampp_tpu/linear/ba_schur.py:304 and :600, XLA-fused"
 
 
 class Failure(Exception):
@@ -851,6 +860,73 @@ def _check_kernels(dev):
     return summary
 
 
+TOL_BA_KERNEL = 1e-12
+
+
+def _p2c_bound(name, m, n_c, n_l):
+    """Least time (ms) of one call of the BA reprojection kernel at m
+    observations: every input and output byte once at the memory rate
+    (indices, uv and the information per observation, points and cameras
+    once; linearize writes r, Jp, Jc, WJp, WJc: 38 doubles an observation)."""
+    nbytes = m * (2 * 8 + 2 * 8 + 4 * 8) + n_l * 3 * 8 + n_c * 11 * 8
+    if name == "p2c_linearize":
+        nbytes += m * 38 * 8
+    return 1e3 * nbytes / PEAK_BYTES
+
+
+def _check_ba_kernels(dev, summary) -> None:
+    """The BA reprojection kernel's two forms against their plain versions
+    at venice871's shape (the benchmark's scene: 871 cameras, 527,480
+    points, mean track 5.1, seed 0; the cameras moved off their poses as
+    the benchmark's), timed beside the plain version and the byte bound;
+    adds both to ``summary``."""
+    import numpy as np
+    import torch
+
+    from slampp_tpu_torch.io.datasets import make_venice_ba_arrays
+    from slampp_tpu_torch.ops import ba_kernels as bak
+
+    t0 = time.perf_counter()
+    cams, lms, oc, ol, uv, info, _ = make_venice_ba_arrays(
+        n_cams=871, n_points=527_480, mean_track=5.1, seed=0)
+    rng = np.random.default_rng(0)
+    cams[:, 0:3] += rng.normal(0, 0.03, (len(cams), 3))
+    cams[:, 3:6] += rng.normal(0, 0.002, (len(cams), 3))
+    # sorted by landmark already, as the engine's plan keeps them
+    ops = tuple(torch.as_tensor(a, device=dev) for a in (cams, lms, oc, ol, uv, info))
+    m = len(oc)
+    # each form's outputs as a tuple, chi2 last
+    forms = (("p2c_linearize", bak.p2c_linearize, bak.p2c_linearize_plain),
+             ("p2c_chi2", lambda *a: (bak.p2c_chi2(*a),), lambda *a: (bak.p2c_chi2_plain(*a),)))
+    for name, kern, plain in forms:
+        got, want = kern(*ops), plain(*ops)
+        torch.cuda.synchronize()
+        rel = [float((g - w).abs().max() / max(float(w.abs().max()), 1.0))
+               for g, w in zip(got, want)]
+        chi2 = got[-1]
+        same_bits = all(torch.equal(kern(*ops)[-1], chi2) for _ in range(3))
+        del got, want
+        info_line = {"kernel": name, "shape": [m], "dtype": "float64", "n_cams": len(cams),
+                     "n_points": len(lms), "rel_err": rel, "tol": TOL_BA_KERNEL,
+                     "chi2": float(chi2), "chi2_same_bits": same_bits}
+        info_line["ms"] = _time_ms(lambda: kern(*ops))
+        info_line["device_ms"], info_line["device_ms_source"] = _device_ms(lambda: kern(*ops))
+        rp = _reps(lambda: plain(*ops))
+        info_line["plain_ms"] = _time_ms(lambda: plain(*ops), rp, 1)
+        info_line["plain_device_ms"], info_line["plain_device_ms_source"] = _device_ms(
+            lambda: plain(*ops), max(2, rp), warmup=1)
+        info_line["bound_ms"] = _p2c_bound(name, m, len(cams), len(lms))
+        info_line["bound_by"] = "bytes"
+        info_line["bound_share"] = info_line["bound_ms"] / info_line["device_ms"]
+        summary[name] = {"shapes": [{"library_device_ms": None, **{k: info_line[k] for k in (
+            "shape", "dtype", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+            "bound_by")}}]}
+        _line("ba-kernels", max(rel) <= TOL_BA_KERNEL and same_bits,
+              time.perf_counter() - t0, **info_line)
+        CHECKED.add((name, m, None, None, "float64"))
+        t0 = time.perf_counter()
+
+
 def _trsm_graph(dev) -> None:
     """One separator-form TRSM (its workspace zeroed on the stream, then one
     launch) captured in a CUDA graph at sphere-f64's separator shape and
@@ -1204,16 +1280,20 @@ def _ba_phases(dev) -> dict:
     import torch
 
     from slampp_tpu_torch.apps import ba
+    from slampp_tpu_torch.ops import ba_kernels as bak
     from slampp_tpu_torch.ops import dense_kernels as dk
 
     for phase, sc_f64 in (("ba-venice", False), ("ba-venice-f64", True)):
         ref, tol = JAX_REF[phase], TOL_BA[phase]
         t0 = time.perf_counter()
         dk.reset_launches()
+        bak.reset_launches()
         res = ba.run_venice(871, 110_000, 10, dev, sc_f64=sc_f64, pair_f32=not sc_f64)
+        res["p2c_launches"] = dict(bak.launches)
         rel = abs(res["chi2_final"] - ref["chi2_final"]) / ref["chi2_final"]
         ok = (rel <= tol and res["lm_accepted"] == ref["lm_accepted"]
               and res["n_obs"] == ref["n_obs"] and not any(dk.launches.values())
+              and all(v > 0 for v in bak.launches.values())
               and abs(res["chi2_init"] - ref["chi2_init"]) <= 1e-9 * ref["chi2_init"])
         _line(phase, ok, time.perf_counter() - t0, reference=ref, rel_err=rel, tol=tol, **res)
         RESULTS[phase] = res
@@ -1674,6 +1754,7 @@ def main(kernels_only: bool = False) -> int:
     summary = _check_kernels(dev)
     _trsm_graph(dev)
     _chol_graph(dev)
+    _check_ba_kernels(dev, summary)
     if kernels_only:
         _kernel_bench(summary)
         print(json.dumps({"seconds": time.perf_counter() - T_START,
@@ -1734,17 +1815,32 @@ def main(kernels_only: bool = False) -> int:
     print(json.dumps({"main_path": {
         "metric": "manhattan3500_gn_iters_per_sec", "value": main["iters_per_sec"],
         "chi2_final": main["chi2_final"], "chi2_ok": True, "card": smi}}))
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-         "launches": launches[k], "launches_per_iter": launches[k] / iters,
-         "launches_per_iter_by_phase": {ph: d[k] for ph, d in per_iter.items()}, **v}
-        for k, v in summary.items()
-    ]}))
+    print(json.dumps({"kernels": _kernel_summary(summary, launches, iters, per_iter)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _kernel_summary(summary, launches, iters, per_iter) -> list:
+    """The closing kernel summary: each kernel's timed cases (``summary``)
+    with its launches on the main path (``launches`` over ``iters``) and
+    per iteration of each phase (``per_iter``); the BA reprojection
+    kernel's launches in the ba-venice phases."""
+    out = []
+    for k, v in summary.items():
+        if k in REPLACES:
+            out.append({"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
+                        "launches": launches[k], "launches_per_iter": launches[k] / iters,
+                        "launches_per_iter_by_phase": {ph: d[k] for ph, d in per_iter.items()},
+                        **v})
+        else:
+            out.append({"name": k, "route": "cuda", "source": BA_SOURCE, "replaces": BA_REPLACES,
+                        "launches_by_phase": {ph: RESULTS[ph]["p2c_launches"][k]
+                                              for ph in ("ba-venice", "ba-venice-f64")},
+                        **v})
+    return out
 
 
 def _incremental_child() -> dict:

@@ -4,6 +4,9 @@
 The reduced camera system is built directly from the observations, never
 from a dense Hessian:
 
+  * the residuals, the Jacobians and their products with the information,
+    and each chi2 of the LM loop, come from ``ops/ba_kernels.py``: one
+    float64 kernel launch on the card, the models' chain on the CPU;
   * observations sorted by landmark: the landmark blocks D_l, g_l and the
     back-substitution are grouped padded-gather sums (ops/segments.py),
     whose order is fixed by the plan;
@@ -43,8 +46,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from slampp_tpu_torch.geometry import camera as cam_geo
 from slampp_tpu_torch.models import ba as ba_models
+from slampp_tpu_torch.ops import ba_kernels
 from slampp_tpu_torch.ops.segments import (
     GroupedSegments,
     grouped_segsum_first,
@@ -292,13 +295,10 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
     float32 with one float64 refinement."""
     n_c = plan.n_c
     with span("ba.jacobians"):
-        r, (Jp, Jc) = ba_models._edge_p2c_jacobians(
-            (lm_states[plan.obs_lm], cam_states[plan.obs_cam]), plan.obs_uv)
-        W = plan.obs_info
-        Wr = torch.einsum("mij,mj->mi", W, r)
-        chi2 = (r * Wr).sum()
-        WJc = W @ Jc  # (m, 2, 6)
-        WJp = W @ Jp  # (m, 2, 3)
+        # r (m, 2), Jp (m, 2, 3), Jc (m, 2, 6), W Jp, W Jc and chi2: one
+        # kernel launch on the card (ops/ba_kernels.py)
+        r, Jp, Jc, WJp, WJc, chi2 = ba_kernels.p2c_linearize(
+            cam_states, lm_states, plan.obs_cam, plan.obs_lm, plan.obs_uv, plan.obs_info)
 
     with span("ba.landmarks"):
         D = grouped_segsum_first(Jp.transpose(1, 2) @ WJp, plan.lm_grp)  # (n_l, 3, 3)
@@ -365,9 +365,9 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
 def ba_chi2_only(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: torch.Tensor):
     """Residual-only chi2 (no Jacobians, no SC): the LM loop's accept /
     reject test, so that a rejected step costs O(m) (reference
-    NonlinearSolver_Lambda_LM.h:205-230)."""
-    r = cam_geo.p2c_error(lm_states[plan.obs_lm], cam_states[plan.obs_cam], plan.obs_uv)
-    return torch.einsum("mi,mij,mj->", r, plan.obs_info, r)
+    NonlinearSolver_Lambda_LM.h:205-230); one kernel launch on the card."""
+    return ba_kernels.p2c_chi2(cam_states, lm_states, plan.obs_cam, plan.obs_lm, plan.obs_uv,
+                               plan.obs_info)
 
 
 class BigBASolver:

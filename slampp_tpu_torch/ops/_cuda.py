@@ -1,10 +1,12 @@
 """Build and load the hand-written native code (``csrc/``): the CUDA
-kernels (``dense_kernels.cu``, with ``nvcc``) and the host ordering
-(``slampp_native.cpp``, with the host C++ compiler; core/ordering.py).
+kernels (``dense_kernels.cu`` and ``ba_kernels.cu``, with ``nvcc``, into
+one library) and the host ordering (``slampp_native.cpp``, with the host
+C++ compiler; core/ordering.py).
 
-Each source is compiled at first use into a shared library with a plain C
-interface under ``slampp_tpu_torch/_build/`` (one file per hash of source
-and flags, so an edited source rebuilds), then bound through ``ctypes``.
+Each library is compiled at first use into a shared library with a plain
+C interface under ``slampp_tpu_torch/_build/`` (one file per hash of its
+sources and flags, so an edited source rebuilds), then bound through
+``ctypes``.
 Nothing here runs at import: the CPU tests import every module on machines
 that have no ``nvcc`` and no card.
 """
@@ -23,6 +25,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "dense_kernels.cu"
+_BA_SOURCE = _PKG / "csrc" / "ba_kernels.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,14 +48,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def compile_shared(source: Path, compiler: str, flags, info: dict) -> Path:
-    """``compiler flags -o <lib> source`` into BUILD_DIR, unless the library
-    of this source and these flags is there already; ``info`` gets its path,
+def compile_shared(sources, compiler: str, flags, info: dict) -> Path:
+    """``compiler flags -o <lib> sources`` into BUILD_DIR (``sources`` one
+    path or several, the library named after the first), unless the library
+    of these sources and flags is there already; ``info`` gets its path,
     the seconds the build took and the compiler's messages.  Raises when the
     compiler fails."""
-    src = source.read_bytes()
+    sources = [sources] if isinstance(sources, Path) else list(sources)
+    src = b"".join(p.read_bytes() for p in sources)
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}-{digest}.so"
+    out = BUILD_DIR / f"{sources[0].stem}-{digest}.so"
     if out.exists():
         info.update(path=str(out), seconds=0.0, log="(cached)")
         return out
@@ -60,7 +65,7 @@ def compile_shared(source: Path, compiler: str, flags, info: dict) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([compiler, *flags, "-o", tmp, str(source)],
+    proc = subprocess.run([compiler, *flags, "-o", tmp, *map(str, sources)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -75,8 +80,9 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(compile_shared(_SOURCE, _nvcc(), NVCC_FLAGS, build_info)))
-            ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+            lib = ctypes.CDLL(str(compile_shared((_SOURCE, _BA_SOURCE), _nvcc(), NVCC_FLAGS,
+                                                 build_info)))
+            ptr, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"slampp_chol_{dt}")
                 fn.argtypes = [ptr, ptr, i32, i32, f64, ptr, ptr]
@@ -93,6 +99,12 @@ def load() -> ctypes.CDLL:
             lib.slampp_chol_form.restype = i32
             lib.slampp_trsm_form.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
             lib.slampp_trsm_form.restype = i32
+            lib.slampp_p2c_workspace.argtypes = [i64, ctypes.POINTER(i64)]
+            lib.slampp_p2c_workspace.restype = i32
+            lib.slampp_p2c_linearize_f64.argtypes = [ptr] * 6 + [i64] + [ptr] * 8
+            lib.slampp_p2c_linearize_f64.restype = i32
+            lib.slampp_p2c_chi2_f64.argtypes = [ptr] * 6 + [i64] + [ptr] * 3
+            lib.slampp_p2c_chi2_f64.restype = i32
             lib.slampp_error_string.argtypes = [i32]
             lib.slampp_error_string.restype = ctypes.c_char_p
             _lib = lib
