@@ -39,19 +39,25 @@ from slampp_tpu_torch.utils.device import require_device
 
 
 def venice_ba_system(n_cams: int, n_points: int, mean_track: int) -> GraphSystem:
-    """The seed-0 venice-class scene as a cam / xyz GraphSystem: cameras
-    are vertices 0..n_cams-1, points follow, one ``edge_p2c`` (point,
-    camera) per observation in the generator's order."""
+    """The seed-0 venice-class scene as a cam / xyz GraphSystem
+    (``ba_system_from_arrays``)."""
     cams, lms, oc, ol, uv, info, _ = make_venice_ba_arrays(
         n_cams=n_cams, n_points=n_points, mean_track=mean_track, seed=0)
+    return ba_system_from_arrays(cams, lms, oc, ol, uv, info)
+
+
+def ba_system_from_arrays(cams, lms, obs_cam, obs_pt, uv, info) -> GraphSystem:
+    """Observation arrays as a cam / xyz GraphSystem: cameras are vertices
+    0..n_cams-1, points follow, one ``edge_p2c`` (point, camera) per
+    observation in the arrays' order."""
     system = GraphSystem()
     n_c = len(cams)
     for c in range(n_c):
         system.add_vertex("cam", c, cams[c])
     for p in range(len(lms)):
         system.add_vertex("xyz", n_c + p, lms[p])
-    for e in range(len(oc)):
-        system.add_edge("edge_p2c", (n_c + int(ol[e]), int(oc[e])), uv[e], info[e])
+    for e in range(len(obs_cam)):
+        system.add_edge("edge_p2c", (n_c + int(obs_pt[e]), int(obs_cam[e])), uv[e], info[e])
     return system
 
 

@@ -12,6 +12,11 @@ The reference's baseline damping policy, exactly as in the JAX package:
   * damping is additive on the lambda diagonal (ApplyDamping, :235-243).
 The loop runs on the host and reads dx_norm, the gain-ratio denominator and
 the candidate's chi2 back each iteration, as the JAX package does.
+``optimize`` snapshots the host graph, runs ``optimize_graph`` on the
+snapshot and writes the result back; a caller that re-optimizes holds the
+device graph itself and calls ``optimize_graph`` (spans ``lm.solve`` >
+``lm.iteration`` > the engine's layers, ``lm.chi2``, ``lm.accept`` /
+``lm.reject``).
 
 The Schur engines: ``use_schur`` eliminates the landmarks of the dense
 Hessian (``linear/schur.py``), and on a landmark graph of
@@ -33,6 +38,7 @@ from slampp_tpu_torch.graph.system import GraphArrays, GraphSystem
 from slampp_tpu_torch.graph.types import get_vertex_type
 from slampp_tpu_torch.linear.dense import solve_spd
 from slampp_tpu_torch.utils.device import require_device
+from slampp_tpu_torch.utils.spans import span, spanned
 from slampp_tpu_torch.utils.timer import PhaseTimer
 
 # a landmark graph of this many vertices or more takes the sparse Schur
@@ -153,55 +159,75 @@ class LevenbergMarquardtSolver:
                 applied = self._big.optimize(max_iterations, min_dx_norm)
             self.n_iterations += max_iterations
             return applied
-        graph = self.system.snapshot(self.device)
+        graph, applied, _ = self.optimize_graph(self.system.snapshot(self.device),
+                                                max_iterations, min_dx_norm)
+        self.system.update_states(graph.states)
+        return applied
+
+    @spanned("lm.solve")
+    def optimize_graph(self, graph: GraphArrays, max_iterations: int = 5,
+                       min_dx_norm: float = 0.01):
+        """The LM loop on a device graph the caller holds (the dense, v3 and
+        sparse Schur engines): up to ``max_iterations`` steps from
+        ``graph``, which is left as it is.  Returns (the final graph, the
+        accepted steps, the steps taken, accepted or rejected, counted as
+        ``n_iterations`` counts them)."""
+        require_device(self.device, "LevenbergMarquardtSolver")
+        engine = self._resolve_engine()
+        if engine == "big_ba":
+            raise ValueError("the big_ba engine runs its own loop (BigBASolver.optimize)")
         alpha = self.tau * float(assembly.max_edge_hessian_diag(graph))
         nu = 2.0
-        last_error = float(assembly.graph_chi2(graph))
+        with span("lm.chi2"):
+            last_error = float(assembly.graph_chi2(graph))
         applied = 0
         it = 0
         while it < max_iterations:
             it += 1
             self.n_iterations += 1
-            if engine in ("v3", "schur_sparse"):
-                eng = self._v3_solver() if engine == "v3" else self._ss_solver()
-                with self.timer.phase("solve"):
-                    new_states, denom, dx_norm, _ = eng.damped_step(graph, alpha)
-                    dx_norm = float(dx_norm)
-            else:
-                with self.timer.phase("assemble"):
-                    H, g, _ = assembly.assemble_dense(graph)
-                with self.timer.phase("solve"):
-                    if self.use_schur:
-                        from slampp_tpu_torch.linear.schur import schur_solve_dense_damped
+            with span("lm.iteration"):
+                if engine in ("v3", "schur_sparse"):
+                    eng = self._v3_solver() if engine == "v3" else self._ss_solver()
+                    with self.timer.phase("solve"):
+                        new_states, denom, dx_norm, _ = eng.damped_step(graph, alpha)
+                        dx_norm = float(dx_norm)
+                else:
+                    with self.timer.phase("assemble"):
+                        H, g, _ = assembly.assemble_dense(graph)
+                    with self.timer.phase("solve"):
+                        if self.use_schur:
+                            from slampp_tpu_torch.linear.schur import schur_solve_dense_damped
 
-                        new_states, _, denom, dx_norm = schur_solve_dense_damped(
-                            graph, H, g, alpha, self._plan())
-                    else:
-                        new_states, _, denom, dx_norm = _damped_step(graph, H, g, alpha)
-                    dx_norm = float(dx_norm)
-            if not math.isfinite(dx_norm):
-                warn_not_positive_definite()
-                break
-            if dx_norm <= min_dx_norm:
-                break
-            candidate = graph.replace_states(new_states)
-            f_error = float(assembly.graph_chi2(candidate))
-            rho = (last_error - f_error) / max(float(denom), 1e-300)
-            if rho > 0:
-                alpha *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
-                nu = 2.0
-                last_error = f_error
-                graph = candidate
-                applied += 1
-                if self.verbose:
-                    print(f"LM iter {it}: accepted chi2={f_error:.4f} alpha={alpha:.3e}")
-            else:
-                alpha *= nu
-                nu *= 2.0
-                if self.verbose:
-                    print(f"LM iter {it}: rejected chi2={f_error:.4f} alpha={alpha:.3e}")
-        self.system.update_states(graph.states)
-        return applied
+                            new_states, _, denom, dx_norm = schur_solve_dense_damped(
+                                graph, H, g, alpha, self._plan())
+                        else:
+                            new_states, _, denom, dx_norm = _damped_step(graph, H, g, alpha)
+                        dx_norm = float(dx_norm)
+                if not math.isfinite(dx_norm):
+                    warn_not_positive_definite()
+                    break
+                if dx_norm <= min_dx_norm:
+                    break
+                candidate = graph.replace_states(new_states)
+                with span("lm.chi2"):
+                    f_error = float(assembly.graph_chi2(candidate))
+                rho = (last_error - f_error) / max(float(denom), 1e-300)
+                if rho > 0:
+                    with span("lm.accept"):
+                        alpha *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
+                        nu = 2.0
+                        last_error = f_error
+                        graph = candidate
+                        applied += 1
+                        if self.verbose:
+                            print(f"LM iter {it}: accepted chi2={f_error:.4f} alpha={alpha:.3e}")
+                else:
+                    with span("lm.reject"):
+                        alpha *= nu
+                        nu *= 2.0
+                        if self.verbose:
+                            print(f"LM iter {it}: rejected chi2={f_error:.4f} alpha={alpha:.3e}")
+        return graph, applied, it
 
     def chi2(self) -> float:
         """Denormalized chi-squared at the current linearization point."""
