@@ -35,7 +35,11 @@ the run with a non-zero exit code and no result line:
               plain version: each output within 1e-12 of the plain one's
               largest entry, chi2 the same bits over repeated calls, device
               ms beside the byte bound and the plain version's ms
-              (ba-kernels);
+              (ba-kernels); then the Sim(3) xyz G edge kernel
+              (ops/sim3_kernels.py), both forms, at venice871_sim3's
+              2,792,206 edges (the same scene in Sim(3)) in the landmark
+              order, held and timed the same way against the generic path
+              the CPU keeps (sim3-kernels);
   4. main     manhattan3500, mixed precision, chain mode, target 64,
               refine 0, 5 fused GN iterations; chi2 within 5e-3 of the f64
               oracle 404.504, every kernel launched by that run;
@@ -161,7 +165,10 @@ the run with a non-zero exit code and no result line:
               1e-5 with the same accepted count, chi2 at the start to the
               JAX package's within 1e-9; schur_sparse taken, all three
               kernels launched in both runs at shapes the kernel phase
-              checked;
+              checked; in each run's LM loop of n iterations alone, the
+              Sim(3) edge kernel's terms form launched 1 + n times (the
+              initial damping, each step) and its chi2 form n + 1 (the
+              start, each candidate);
   sim3-venice-ref  the same procedure at 871 cameras and 30,000 points
               (300,046 observations), which the JAX package takes: chi2
               within 5e-3 of its CPU run, the same accepted count;
@@ -480,9 +487,18 @@ REPLACES = {
     "trsm_lower_batched": "slampp_tpu/ops/dense_kernels.py:215",
     "trsm_lower_t_batched": "slampp_tpu/ops/dense_kernels.py:236",
 }
-# the BA reprojection kernel replaces no Pallas kernel
-BA_SOURCE = "slampp_tpu_torch/csrc/ba_kernels.cu"
-BA_REPLACES = "none: slampp_tpu/linear/ba_schur.py:304 and :600, XLA-fused"
+# the BA reprojection and Sim(3) edge kernels replace no Pallas kernel:
+# their source, what they replace, the phases whose launches the summary
+# gives and the key of those phases' counts
+FUSED = {
+    "p2c": ("slampp_tpu_torch/csrc/ba_kernels.cu",
+            "none: slampp_tpu/linear/ba_schur.py:304 and :600, XLA-fused",
+            ("ba-venice", "ba-venice-f64"), "p2c_launches"),
+    "sim3_g": ("slampp_tpu_torch/csrc/sim3_kernels.cu",
+               "none: slampp_tpu/models/sim3.py _g_jacobians and "
+               "slampp_tpu/core/assembly.py edge_chi2, XLA-fused",
+               ("sim3-venice", "sim3-venice-ref"), "sim3_launches"),
+}
 
 
 class Failure(Exception):
@@ -860,7 +876,7 @@ def _check_kernels(dev):
     return summary
 
 
-TOL_BA_KERNEL = 1e-12
+TOL_FUSED_KERNEL = 1e-12
 
 
 def _p2c_bound(name, m, n_c, n_l):
@@ -874,30 +890,16 @@ def _p2c_bound(name, m, n_c, n_l):
     return 1e3 * nbytes / PEAK_BYTES
 
 
-def _check_ba_kernels(dev, summary) -> None:
-    """The BA reprojection kernel's two forms against their plain versions
-    at venice871's shape (the benchmark's scene: 871 cameras, 527,480
-    points, mean track 5.1, seed 0; the cameras moved off their poses as
-    the benchmark's), timed beside the plain version and the byte bound;
-    adds both to ``summary``."""
-    import numpy as np
+def _check_fused_forms(phase, forms, ops, bound, summary, **shape) -> None:
+    """Each of ``forms`` ((name, kernel, plain), each returning a tuple with
+    chi2 last) against its plain version on ``ops``: every output within
+    TOL_FUSED_KERNEL of the plain one's largest entry, chi2 the same bits
+    over repeated calls; timed beside the plain version and ``bound(name)``
+    (bytes); one ``phase`` line a form, and the form in ``summary``."""
     import torch
 
-    from slampp_tpu_torch.io.datasets import make_venice_ba_arrays
-    from slampp_tpu_torch.ops import ba_kernels as bak
-
+    m = ops[2].shape[0]
     t0 = time.perf_counter()
-    cams, lms, oc, ol, uv, info, _ = make_venice_ba_arrays(
-        n_cams=871, n_points=527_480, mean_track=5.1, seed=0)
-    rng = np.random.default_rng(0)
-    cams[:, 0:3] += rng.normal(0, 0.03, (len(cams), 3))
-    cams[:, 3:6] += rng.normal(0, 0.002, (len(cams), 3))
-    # sorted by landmark already, as the engine's plan keeps them
-    ops = tuple(torch.as_tensor(a, device=dev) for a in (cams, lms, oc, ol, uv, info))
-    m = len(oc)
-    # each form's outputs as a tuple, chi2 last
-    forms = (("p2c_linearize", bak.p2c_linearize, bak.p2c_linearize_plain),
-             ("p2c_chi2", lambda *a: (bak.p2c_chi2(*a),), lambda *a: (bak.p2c_chi2_plain(*a),)))
     for name, kern, plain in forms:
         got, want = kern(*ops), plain(*ops)
         torch.cuda.synchronize()
@@ -906,25 +908,125 @@ def _check_ba_kernels(dev, summary) -> None:
         chi2 = got[-1]
         same_bits = all(torch.equal(kern(*ops)[-1], chi2) for _ in range(3))
         del got, want
-        info_line = {"kernel": name, "shape": [m], "dtype": "float64", "n_cams": len(cams),
-                     "n_points": len(lms), "rel_err": rel, "tol": TOL_BA_KERNEL,
-                     "chi2": float(chi2), "chi2_same_bits": same_bits}
+        info_line = {"kernel": name, "shape": [m], "dtype": "float64", **shape, "rel_err": rel,
+                     "tol": TOL_FUSED_KERNEL, "chi2": float(chi2), "chi2_same_bits": same_bits}
         info_line["ms"] = _time_ms(lambda: kern(*ops))
         info_line["device_ms"], info_line["device_ms_source"] = _device_ms(lambda: kern(*ops))
         rp = _reps(lambda: plain(*ops))
         info_line["plain_ms"] = _time_ms(lambda: plain(*ops), rp, 1)
         info_line["plain_device_ms"], info_line["plain_device_ms_source"] = _device_ms(
             lambda: plain(*ops), max(2, rp), warmup=1)
-        info_line["bound_ms"] = _p2c_bound(name, m, len(cams), len(lms))
+        info_line["bound_ms"] = bound(name)
         info_line["bound_by"] = "bytes"
         info_line["bound_share"] = info_line["bound_ms"] / info_line["device_ms"]
         summary[name] = {"shapes": [{"library_device_ms": None, **{k: info_line[k] for k in (
             "shape", "dtype", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
             "bound_by")}}]}
-        _line("ba-kernels", max(rel) <= TOL_BA_KERNEL and same_bits,
-              time.perf_counter() - t0, **info_line)
+        _line(phase, max(rel) <= TOL_FUSED_KERNEL and same_bits, time.perf_counter() - t0,
+              **info_line)
         CHECKED.add((name, m, None, None, "float64"))
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
+
+
+def _venice871_arrays():
+    """The benchmark's venice871 scene (871 cameras, 527,480 points, mean
+    track 5.1, seed 0; the cameras moved off their poses as the
+    benchmark's), observations sorted by landmark."""
+    import numpy as np
+
+    from slampp_tpu_torch.io.datasets import make_venice_ba_arrays
+
+    cams, lms, oc, ol, uv, info, _ = make_venice_ba_arrays(
+        n_cams=871, n_points=527_480, mean_track=5.1, seed=0)
+    rng = np.random.default_rng(0)
+    cams[:, 0:3] += rng.normal(0, 0.03, (len(cams), 3))
+    cams[:, 3:6] += rng.normal(0, 0.002, (len(cams), 3))
+    return cams, lms, oc, ol, uv, info
+
+
+def _check_ba_kernels(dev, summary) -> None:
+    """The BA reprojection kernel's two forms against their plain versions
+    at venice871's shape (``_venice871_arrays``, sorted by landmark as the
+    engine's plan keeps them), timed beside the plain version and the byte
+    bound; adds both to ``summary``."""
+    import torch
+
+    from slampp_tpu_torch.ops import ba_kernels as bak
+
+    cams, lms, oc, ol, uv, info = _venice871_arrays()
+    ops = tuple(torch.as_tensor(a, device=dev) for a in (cams, lms, oc, ol, uv, info))
+    forms = (("p2c_linearize", bak.p2c_linearize, bak.p2c_linearize_plain),
+             ("p2c_chi2", lambda *a: (bak.p2c_chi2(*a),), lambda *a: (bak.p2c_chi2_plain(*a),)))
+    _check_fused_forms("ba-kernels", forms, ops,
+                       lambda name: _p2c_bound(name, len(oc), len(cams), len(lms)), summary,
+                       n_cams=len(cams), n_points=len(lms))
+
+
+def _sim3_g_bound(name, m, n_c, n_l):
+    """Least time (ms) of one call of the Sim(3) edge kernel at m edges:
+    every input and output byte once at the memory rate (the (point,
+    camera) indices, z, the information and valid per edge; the terms form
+    its order index too and writes Hpp, gp, Dl, gl, B: 89 doubles an edge;
+    points and cameras once)."""
+    nbytes = m * (2 * 8 + 2 * 8 + 4 * 8 + 1) + n_l * 3 * 8 + n_c * 12 * 8
+    if name == "sim3_g_terms":
+        nbytes += m * (8 + 89 * 8)
+    return 1e3 * nbytes / PEAK_BYTES
+
+
+def _check_sim3_kernels(dev, summary) -> None:
+    """The Sim(3) xyz G edge kernel's two forms against the generic path on
+    the card (``schur_sparse.pl_terms`` gathered into the landmark order, as
+    the engine did; ``assembly.edge_chi2`` on ``error_fn``) at
+    venice871_sim3's shape: ``_venice871_arrays`` embedded in Sim(3) as
+    ``models/sim3.embed_ba_system_sim3`` embeds them (each world-to-camera
+    pose inverted, scale 1), the terms form in the landmark order; timed
+    beside the generic path and the byte bound; adds both to ``summary``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from slampp_tpu_torch.core import assembly
+    from slampp_tpu_torch.geometry import sim3
+    from slampp_tpu_torch.graph.system import EdgeArrays
+    from slampp_tpu_torch.graph.types import TYPE_REGISTRY, get_edge_type
+    from slampp_tpu_torch.linear.schur_sparse import pl_terms
+    from slampp_tpu_torch.ops import sim3_kernels as sk
+
+    name = "edge_p2c_xyz_sim3_g"
+    et = get_edge_type(name)
+    cams, lms, oc, ol, uv, info = _venice871_arrays()
+    w2c = torch.as_tensor(np.concatenate([cams[:, 0:6], np.ones((len(cams), 1))], 1))
+    cams12 = torch.cat([sim3.sim3_log(sim3.inverse_tRs(w2c)), torch.as_tensor(cams[:, 6:11])], 1)
+    ops = tuple(torch.as_tensor(a, device=dev) for a in (
+        lms, cams12, np.stack([ol, oc], 1), uv, info, np.ones(len(oc), bool)))
+    order = torch.argsort(ops[2][:, 0], stable=True)
+
+    def generic(points, cams, idx, meas, sigma_inv, valid):
+        return ({"xyz": points, "camsim3": cams},
+                EdgeArrays(idx, torch.zeros_like(idx), meas, sigma_inv, valid))
+
+    def generic_terms(*a):
+        states, ea = generic(*a)
+        terms = pl_terms(et, 0, ea, states)
+        return (*(t[order] for t in terms[:5]), terms[5])
+
+    def generic_chi2(*a):
+        states, ea = generic(*a)
+        return (assembly.edge_chi2(name, ea, states),)
+
+    forms = (("sim3_g_terms", lambda *a: sk.sim3_g_terms(*a, order), generic_terms),
+             ("sim3_g_chi2", lambda *a: (sk.sim3_g_chi2(*a),), generic_chi2))
+    # the type without its fused forms, so that edge_chi2 takes error_fn
+    TYPE_REGISTRY["edge"][name] = dataclasses.replace(et, fused_terms=None, fused_chi2=None)
+    try:
+        _check_fused_forms("sim3-kernels", forms, ops,
+                           lambda k: _sim3_g_bound(k, len(oc), len(cams), len(lms)), summary,
+                           n_cams=len(cams), n_points=len(lms))
+    finally:
+        TYPE_REGISTRY["edge"][name] = et
 
 
 def _trsm_graph(dev) -> None:
@@ -1347,6 +1449,12 @@ def _sim3_phases(dev) -> dict:
     def launched_checked(launches, shapes):
         return all(v > 0 for v in launches.values()) and set(map(tuple, shapes)) <= CHECKED
 
+    def sim3_launched(run):
+        # the LM loop of n iterations alone: the terms form for the initial
+        # damping and each step, the chi2 form for the start and each candidate
+        n = run["lm_iterations"]
+        return run["sim3_launches"] == {"sim3_g_terms": 1 + n, "sim3_g_chi2": n + 1}
+
     per_iter = {}
     ref, tol = JAX_REF["sim3-venice"], TOL_SIM3["sim3-venice"]
     t0 = time.perf_counter()
@@ -1360,9 +1468,11 @@ def _sim3_phases(dev) -> dict:
           and res["lm_accepted"] == f64["lm_accepted"]
           and launched_checked(res["launches_per_iter"], res["kernel_shapes"])
           and launched_checked(f64["launches_per_iter"], f64["kernel_shapes"])
-          and {s[4] for s in f64["kernel_shapes"]} == {"float64"})
+          and {s[4] for s in f64["kernel_shapes"]} == {"float64"}
+          and sim3_launched(res) and sim3_launched(f64))
     _line("sim3-venice", ok, time.perf_counter() - t0, reference=ref, rel_err=err, tol=tol,
           launches_phase=dict(dk.launches), **res)
+    RESULTS["sim3-venice"] = res
     per_iter["sim3-venice"] = res["launches_per_iter"]
     per_iter["sim3-venice-f64"] = f64["launches_per_iter"]
     torch.cuda.empty_cache()
@@ -1376,9 +1486,11 @@ def _sim3_phases(dev) -> dict:
     ok = (res["engine"] == "schur_sparse" and res["n_obs"] == ref["n_obs"]
           and err["chi2_final"] <= tol and err["chi2_init"] <= 1e-9
           and res["lm_accepted"] == ref["lm_accepted"]
-          and launched_checked(res["launches_per_iter"], res["kernel_shapes"]))
+          and launched_checked(res["launches_per_iter"], res["kernel_shapes"])
+          and sim3_launched(res))
     _line("sim3-venice-ref", ok, time.perf_counter() - t0, reference=ref, rel_err=err, tol=tol,
           **res)
+    RESULTS["sim3-venice-ref"] = res
     per_iter["sim3-venice-ref"] = res["launches_per_iter"]
     torch.cuda.empty_cache()
 
@@ -1755,6 +1867,7 @@ def main(kernels_only: bool = False) -> int:
     _trsm_graph(dev)
     _chol_graph(dev)
     _check_ba_kernels(dev, summary)
+    _check_sim3_kernels(dev, summary)
     if kernels_only:
         _kernel_bench(summary)
         print(json.dumps({"seconds": time.perf_counter() - T_START,
@@ -1827,7 +1940,8 @@ def _kernel_summary(summary, launches, iters, per_iter) -> list:
     """The closing kernel summary: each kernel's timed cases (``summary``)
     with its launches on the main path (``launches`` over ``iters``) and
     per iteration of each phase (``per_iter``); the BA reprojection
-    kernel's launches in the ba-venice phases."""
+    kernel's launches in the ba-venice phases, the Sim(3) edge kernel's in
+    the sim3-venice phases' LM loops (a solve each)."""
     out = []
     for k, v in summary.items():
         if k in REPLACES:
@@ -1836,10 +1950,9 @@ def _kernel_summary(summary, launches, iters, per_iter) -> list:
                         "launches_per_iter_by_phase": {ph: d[k] for ph, d in per_iter.items()},
                         **v})
         else:
-            out.append({"name": k, "route": "cuda", "source": BA_SOURCE, "replaces": BA_REPLACES,
-                        "launches_by_phase": {ph: RESULTS[ph]["p2c_launches"][k]
-                                              for ph in ("ba-venice", "ba-venice-f64")},
-                        **v})
+            source, replaces, phases, key = FUSED[k.rsplit("_", 1)[0]]
+            out.append({"name": k, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches_by_phase": {ph: RESULTS[ph][key][k] for ph in phases}, **v})
     return out
 
 

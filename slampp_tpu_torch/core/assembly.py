@@ -24,9 +24,20 @@ def slot_states(et, ea: EdgeArrays, states: Dict[str, torch.Tensor]):
     return tuple(states[et.vertex_types[s]][ea.local_idx[:, s]] for s in range(et.arity))
 
 
+def takes_fused(et, ea: EdgeArrays) -> bool:
+    """Whether edges ``ea`` of type ``et`` take the type's fused forms
+    (``EdgeType.fused_terms`` / ``fused_chi2``, a hand-written kernel):
+    where the type has them and its operands are on a CUDA card.  One
+    attribute read, no host sync; CPU operands keep the generic path."""
+    return et.fused_terms is not None and ea.meas.is_cuda
+
+
 def edge_chi2(et_name: str, ea: EdgeArrays, states: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Unweighted chi2 of one edge type (denormalized)."""
+    """Unweighted chi2 of one edge type (denormalized); the type's fused
+    chi2 where it takes it (``takes_fused``)."""
     et = get_edge_type(et_name)
+    if takes_fused(et, ea):
+        return et.fused_chi2(ea, states)
     r = et.error_fn(slot_states(et, ea, states), ea.meas)
     v = torch.einsum("ei,eij,ej->e", r, ea.sigma_inv, r)
     return torch.where(ea.valid, v, torch.zeros_like(v)).sum()
@@ -90,13 +101,19 @@ def assemble_dense(graph: GraphArrays) -> Tuple[torch.Tensor, torch.Tensor, torc
 def max_edge_hessian_diag(graph: GraphArrays) -> torch.Tensor:
     """max over edges and slots of max diag(J_a^T W J_a), the LM initial
     damping's scale (JAX ``solvers/lm._max_edge_hessian_diag``; reference
-    f_Max_VertexHessianDiagValue, NonlinearSolver_Lambda_LM.h:152-199)."""
+    f_Max_VertexHessianDiagValue, NonlinearSolver_Lambda_LM.h:152-199); a
+    pose-landmark type that takes its fused terms (``takes_fused``) reads
+    J_a^T W J_a of its two slots from their Hpp and Dl."""
     best = torch.zeros((), dtype=torch.float64, device=graph.device)
     for name, ea in graph.edges.items():
         et = get_edge_type(name)
-        _, jacs = et.jacobian_fn(slot_states(et, ea, graph.states), ea.meas)
-        for J in jacs:
-            Haa = torch.einsum("eji,ejk,ekl->eil", J, ea.sigma_inv, J)
+        if takes_fused(et, ea):
+            Hpp, _, Dl = et.fused_terms(ea, graph.states, None)[:3]
+            blocks = (Hpp, Dl)
+        else:
+            _, jacs = et.jacobian_fn(slot_states(et, ea, graph.states), ea.meas)
+            blocks = (torch.einsum("eji,ejk,ekl->eil", J, ea.sigma_inv, J) for J in jacs)
+        for Haa in blocks:
             d = torch.diagonal(Haa, dim1=1, dim2=2).amax(1)
             best = torch.maximum(best, torch.where(ea.valid, d, 0.0).amax())
     return best

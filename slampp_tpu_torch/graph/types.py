@@ -15,6 +15,14 @@ Conventions as in the JAX package: ``error_fn`` is the residual
 
 * ``EdgeType.robust_weight_fn(r (E, res_dim), sigma_inv (E, res_dim, res_dim)) -> (E,)``
   the IRLS weight that multiplies ``sigma_inv`` in assembly (models/robust.py).
+* ``EdgeType.fused_terms(ea, states, order) -> (H_pose, g_pose, D_lm, g_lm, B, chi2)``
+  and ``EdgeType.fused_chi2(ea, states) -> chi2``: a pose-landmark edge
+  type's fused forms (a hand-written kernel on the card,
+  ops/sim3_kernels.py), which the sparse Schur engine's edge terms,
+  ``assembly.edge_chi2`` and ``assembly.max_edge_hessian_diag`` take in
+  place of ``jacobian_fn`` / ``error_fn`` for CUDA operands
+  (``assembly.takes_fused``); rows of the terms in ``order`` ((E,) int64,
+  or None for the edge order).
 
 The JAX package differentiated each ``error_fn`` through the retractions
 with ``jax.jacfwd`` (``slampp_tpu/core/assembly.py:32-48``).  Here every
@@ -56,6 +64,8 @@ class EdgeType:
     error_fn: Callable
     jacobian_fn: Optional[Callable] = None
     robust_weight_fn: Optional[Callable] = None
+    fused_terms: Optional[Callable] = None
+    fused_chi2: Optional[Callable] = None
 
     @property
     def arity(self) -> int:

@@ -90,6 +90,26 @@ class SparseSchurPlan(NamedTuple):
                                 if isinstance(v, (torch.Tensor, GroupedSegments))})
 
 
+def pl_terms(et, sl: int, ea, states: Dict[str, torch.Tensor]):
+    """A pose-landmark edge type's generic terms in its edge order, its
+    landmark in slot ``sl``: (Hpp, gp, Dl, gl, B, chi2) with W =
+    ``ea.sigma_inv``, Hpp = Jp^T W Jp and gp = (W Jp)^T r of the pose slot,
+    Dl and gl of the landmark slot, B = Jp^T W Jl; chi2 = sum of r^T W r
+    over the valid edges (the terms are not masked)."""
+    r, jacs = et.jacobian_fn(assembly.slot_states(et, ea, states), ea.meas)
+    W = ea.sigma_inv
+    Wr = torch.einsum("eij,ej->ei", W, r)
+    chi2 = torch.where(ea.valid, torch.einsum("ei,ei->e", r, Wr), 0.0).sum()
+    WJ = [torch.einsum("eij,ejk->eik", W, J) for J in jacs]
+    sp = 1 - sl
+    return (torch.einsum("eri,erj->eij", jacs[sp], WJ[sp]),
+            torch.einsum("eri,er->ei", WJ[sp], r),
+            torch.einsum("eri,erj->eij", jacs[sl], WJ[sl]),
+            torch.einsum("eri,er->ei", WJ[sl], r),
+            torch.einsum("eri,erj->eij", jacs[sp], WJ[sl]),
+            chi2)
+
+
 class SparseSchurSolver:
     """General-graph Schur solver: landmark elimination + v3 pose solve.
 
@@ -109,6 +129,9 @@ class SparseSchurSolver:
         self.v3_plan = None
         self._symbolic_key = None
         self._type_meta = None  # per edge type: (name, kind, landmark slot)
+        # the landmark rows come from one type with fused terms, which on
+        # the card write them in the landmark order themselves
+        self._lm_rows_fused = False
         self.tables = None  # the JAX package's routing tables (host)
 
     # ------------------------------------------------------------------ host
@@ -170,6 +193,9 @@ class SparseSchurSolver:
                     pl_pose.append(pose_block[vids[1 - sl]])
                     pl_lm.append(lm_pos[vids[sl]])
         self._type_meta = type_meta
+        lm_types = [(t, k) for t, k, _ in type_meta if k in ("pl", "u_lm")]
+        self._lm_rows_fused = (len(lm_types) == 1 and lm_types[0][1] == "pl"
+                               and get_edge_type(lm_types[0][0]).fused_terms is not None)
         n_pp, n_pl = len(pp_i), len(pl_pose)
         pp_i = np.asarray(pp_i, np.int64).reshape(-1)
         pp_j = np.asarray(pp_j, np.int64).reshape(-1)
@@ -349,16 +375,31 @@ class SparseSchurSolver:
     def _edge_terms(self, graph: GraphArrays):
         """Per-edge contributions in the host's routing order: (pp_Hii,
         pp_Hjj, pp_Hij, pp_gi, pp_gj, pl_Hpp, pl_gp, pl_D, pl_gl, pl_B, chi2),
-        the pl_* arrays in landmark-sorted order."""
+        the pl_* arrays in landmark-sorted order.  A pose-landmark type that
+        takes its fused terms (``assembly.takes_fused``: ops/sim3_kernels.py
+        on the card) takes them in place of :func:`pl_terms`; where it is the
+        only type with landmark rows, they come in the landmark order
+        already."""
         p = self.plan
         bs, dl = p.bs, p.dl
         dt, dev = torch.float64, graph.device
         Hii, Hjj, Hij, gi, gj = [], [], [], [], []
         Hpp, gp, Dl, gl, Bc = [], [], [], [], []
         chi2 = torch.zeros((), dtype=dt, device=dev)
+        lm_sorted = False
         for tname, kind, sl in self._type_meta:
             et = get_edge_type(tname)
             ea = graph.edges[tname]
+            if kind == "pl":
+                if assembly.takes_fused(et, ea):
+                    lm_sorted = self._lm_rows_fused
+                    terms = et.fused_terms(ea, graph.states, p.lm_sort if lm_sorted else None)
+                else:
+                    terms = pl_terms(et, sl, ea, graph.states)
+                for acc, t in zip((Hpp, gp, Dl, gl, Bc), terms):
+                    acc.append(t)
+                chi2 = chi2 + terms[5]
+                continue
             r, jacs = et.jacobian_fn(assembly.slot_states(et, ea, graph.states), ea.meas)
             W = ea.sigma_inv
             Wr = torch.einsum("eij,ej->ei", W, r)
@@ -376,28 +417,24 @@ class SparseSchurSolver:
                 Hij.append(torch.zeros_like(Hii[-1]))
                 gi.append(torch.einsum("eri,er->ei", WJ[0], r))
                 gj.append(torch.zeros_like(gi[-1]))
-            elif kind == "u_lm":
+            else:  # u_lm
                 Dl.append(torch.einsum("eri,erj->eij", jacs[0], WJ[0]))
                 gl.append(torch.einsum("eri,er->ei", WJ[0], r))
                 Hpp.append(r.new_zeros((r.shape[0], bs, bs)))
                 gp.append(r.new_zeros((r.shape[0], bs)))
                 Bc.append(r.new_zeros((r.shape[0], bs, dl)))
-            else:  # pl
-                sp = 1 - sl
-                Hpp.append(torch.einsum("eri,erj->eij", jacs[sp], WJ[sp]))
-                gp.append(torch.einsum("eri,er->ei", WJ[sp], r))
-                Dl.append(torch.einsum("eri,erj->eij", jacs[sl], WJ[sl]))
-                gl.append(torch.einsum("eri,er->ei", WJ[sl], r))
-                Bc.append(torch.einsum("eri,erj->eij", jacs[sp], WJ[sl]))
 
         def cat(xs, shp):
             return torch.cat(xs, 0) if xs else torch.zeros((0,) + shp, dtype=dt, device=dev)
 
         s = p.lm_sort
+        if lm_sorted:
+            lm_rows = (Hpp[0], gp[0], Dl[0], gl[0], Bc[0])
+        else:
+            lm_rows = (cat(Hpp, (bs, bs))[s], cat(gp, (bs,))[s], cat(Dl, (dl, dl))[s],
+                       cat(gl, (dl,))[s], cat(Bc, (bs, dl))[s])
         return (cat(Hii, (bs, bs)), cat(Hjj, (bs, bs)), cat(Hij, (bs, bs)),
-                cat(gi, (bs,)), cat(gj, (bs,)),
-                cat(Hpp, (bs, bs))[s], cat(gp, (bs,))[s], cat(Dl, (dl, dl))[s],
-                cat(gl, (dl,))[s], cat(Bc, (bs, dl))[s], chi2)
+                cat(gi, (bs,)), cat(gj, (bs,)), *lm_rows, chi2)
 
     def _solve_from_terms(self, graph: GraphArrays, terms, alpha: float):
         """Landmark elimination + sparse pose solve from the per-edge terms:

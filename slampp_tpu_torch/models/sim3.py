@@ -21,6 +21,13 @@ space for both parameterizations) by R^T d / s; the projection layer is
 differentiated elementwise.  The other edge types take
 ``graph.types.autodiff_jacobian`` (jacfwd through the retractions, as the
 JAX package did for every type).
+
+The xyz G edge (``edge_p2c_xyz_sim3_g``, the Sim(3) bundle adjustment of
+world points) also has fused forms (``ops/sim3_kernels.py``: one
+hand-written float64 kernel) for its sparse Schur terms, its chi2 and the
+LM damping scale, which CUDA operands take; on the CPU it keeps the plain
+path.  ``edge_p2c_invdepth_sim3_g``, which shares ``_g_jacobians``, and
+every other type stay on the plain path.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from slampp_tpu_torch.graph.types import (
 )
 from slampp_tpu_torch.models import ba  # noqa: F401  (registers xyz)
 from slampp_tpu_torch.models import se3 as _se3_model  # noqa: F401  (registers pose3d)
+from slampp_tpu_torch.ops import sim3_kernels
 
 
 def _camsim3_retract(state, delta):
@@ -229,16 +237,24 @@ def _p2c_invdepth_g_jacobians(xs, z):
     return _g_jacobians(sim3.invdepth_to_xyz(v), cam, z)
 
 
-def _edge(name, vertex_types, res_dim, meas_dim, error_fn, jacobian_fn=None):
+def _xyz_g_operands(ea, states):
+    """The fused forms' operands of the xyz G edges (slots xyz, camsim3)."""
+    return (states["xyz"], states["camsim3"], ea.local_idx, ea.meas, ea.sigma_inv, ea.valid)
+
+
+def _edge(name, vertex_types, res_dim, meas_dim, error_fn, jacobian_fn=None, **fused):
     return register_edge_type(EdgeType(
         name=name, vertex_types=vertex_types, res_dim=res_dim, meas_dim=meas_dim,
         error_fn=error_fn,
-        jacobian_fn=jacobian_fn or autodiff_jacobian(error_fn, vertex_types)))
+        jacobian_fn=jacobian_fn or autodiff_jacobian(error_fn, vertex_types), **fused))
 
 
 _G = ("xyz", "camsim3")
 _LO = ("camsim3", "camsim3")
-EDGE_P2C_XYZ_SIM3_G = _edge("edge_p2c_xyz_sim3_g", _G, 2, 2, _p2c_xyz_g, _p2c_xyz_g_jacobians)
+EDGE_P2C_XYZ_SIM3_G = _edge(
+    "edge_p2c_xyz_sim3_g", _G, 2, 2, _p2c_xyz_g, _p2c_xyz_g_jacobians,
+    fused_terms=lambda ea, st, order: sim3_kernels.sim3_g_terms(*_xyz_g_operands(ea, st), order),
+    fused_chi2=lambda ea, st: sim3_kernels.sim3_g_chi2(*_xyz_g_operands(ea, st)))
 EDGE_P2C_INVDEPTH_SIM3_G = _edge("edge_p2c_invdepth_sim3_g", ("invdepth", "camsim3"), 2, 2,
                                  _p2c_invdepth_g, _p2c_invdepth_g_jacobians)
 EDGE_P2C_XYZ_SIM3_LS = _edge("edge_p2c_xyz_sim3_ls", ("xyz",), 2, 7, _p2c_xyz_ls)

@@ -1,6 +1,6 @@
 """Build and load the hand-written native code (``csrc/``): the CUDA
-kernels (``dense_kernels.cu`` and ``ba_kernels.cu``, with ``nvcc``, into
-one library) and the host ordering (``slampp_native.cpp``, with the host
+kernels (``dense_kernels.cu``, ``ba_kernels.cu`` and ``sim3_kernels.cu``,
+with ``nvcc``, into one library) and the host ordering (``slampp_native.cpp``, with the host
 C++ compiler; core/ordering.py).
 
 Each library is compiled at first use into a shared library with a plain
@@ -26,6 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "dense_kernels.cu"
 _BA_SOURCE = _PKG / "csrc" / "ba_kernels.cu"
+_SIM3_SOURCE = _PKG / "csrc" / "sim3_kernels.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,8 +81,8 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(compile_shared((_SOURCE, _BA_SOURCE), _nvcc(), NVCC_FLAGS,
-                                                 build_info)))
+            lib = ctypes.CDLL(str(compile_shared((_SOURCE, _BA_SOURCE, _SIM3_SOURCE), _nvcc(),
+                                                 NVCC_FLAGS, build_info)))
             ptr, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"slampp_chol_{dt}")
@@ -105,6 +106,12 @@ def load() -> ctypes.CDLL:
             lib.slampp_p2c_linearize_f64.restype = i32
             lib.slampp_p2c_chi2_f64.argtypes = [ptr] * 6 + [i64] + [ptr] * 3
             lib.slampp_p2c_chi2_f64.restype = i32
+            lib.slampp_sim3_g_workspace.argtypes = [i64, ctypes.POINTER(i64)]
+            lib.slampp_sim3_g_workspace.restype = i32
+            lib.slampp_sim3_g_terms_f64.argtypes = [ptr] * 7 + [i64] + [ptr] * 8
+            lib.slampp_sim3_g_terms_f64.restype = i32
+            lib.slampp_sim3_g_chi2_f64.argtypes = [ptr] * 6 + [i64] + [ptr] * 3
+            lib.slampp_sim3_g_chi2_f64.restype = i32
             lib.slampp_error_string.argtypes = [i32]
             lib.slampp_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -116,3 +123,23 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.slampp_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
+
+
+def launch_reduction(what: str, ws_symbol: str, symbol: str, device, m: int, operands,
+                     outputs) -> None:
+    """Launch the kernel entry point ``symbol(*operands, m, *outputs, ws,
+    stream)`` on the current stream of ``device``, with a fresh workspace
+    of the bytes ``ws_symbol(m)`` gives (the kernels' partial sums and their
+    ticket counter); a None operand passes a null pointer.  Raises naming
+    ``what`` if a call returns a CUDA error."""
+    import torch
+
+    lib = load()
+    nbytes = ctypes.c_longlong(0)
+    check(lib, getattr(lib, ws_symbol)(m, ctypes.byref(nbytes)), what)
+    ws = torch.empty(nbytes.value, dtype=torch.uint8, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(lib, getattr(lib, symbol)(*(None if t is None else t.data_ptr() for t in operands),
+                                        m, *(t.data_ptr() for t in outputs), ws.data_ptr(),
+                                        stream), what)

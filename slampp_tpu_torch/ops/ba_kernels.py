@@ -29,12 +29,11 @@ fx fy cx cy k); the graph engines keep ``EDGE_P2C``'s own Jacobians.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from slampp_tpu_torch.geometry import camera as cam_geo
 from slampp_tpu_torch.models import ba as ba_models
+from slampp_tpu_torch.ops import _cuda
 
 launches = {"p2c_linearize": 0, "p2c_chi2": 0}
 
@@ -99,24 +98,6 @@ def _cuda_args(name: str, cams, lms, obs_cam, obs_lm, uv, info) -> int:
     return m
 
 
-def _launch(name: str, symbol: str, device: torch.device, m: int, operands, outputs) -> None:
-    """Launch ``symbol`` on the current stream with a fresh workspace (one
-    partial sum a CTA and the ticket counter, sized by the kernel) and count
-    it under ``name``."""
-    from slampp_tpu_torch.ops import _cuda
-
-    lib = _cuda.load()
-    nbytes = ctypes.c_longlong(0)
-    _cuda.check(lib, lib.slampp_p2c_workspace(m, ctypes.byref(nbytes)), name)
-    ws = torch.empty(nbytes.value, dtype=torch.uint8, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _cuda.check(lib, getattr(lib, symbol)(*(t.data_ptr() for t in operands), m,
-                                              *(t.data_ptr() for t in outputs), ws.data_ptr(),
-                                              stream), name)
-    launches[name] += 1
-
-
 def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
@@ -133,7 +114,9 @@ def p2c_linearize(cam_states, lm_states, obs_cam, obs_lm, obs_uv, obs_info):
     new = cam_states.new_empty
     outs = (new((m, 2)), new((m, 2, 3)), new((m, 2, 6)), new((m, 2, 3)), new((m, 2, 6)),
             new(()))
-    _launch("p2c_linearize", "slampp_p2c_linearize_f64", cam_states.device, m, ops, outs)
+    _cuda.launch_reduction("p2c_linearize", "slampp_p2c_workspace", "slampp_p2c_linearize_f64",
+                           cam_states.device, m, ops, outs)
+    launches["p2c_linearize"] += 1
     return outs
 
 
@@ -145,5 +128,7 @@ def p2c_chi2(cam_states, lm_states, obs_cam, obs_lm, obs_uv, obs_info):
         return p2c_chi2_plain(*ops)
     m = _cuda_args("p2c_chi2", *ops)
     chi2 = cam_states.new_empty(())
-    _launch("p2c_chi2", "slampp_p2c_chi2_f64", cam_states.device, m, ops, (chi2,))
+    _cuda.launch_reduction("p2c_chi2", "slampp_p2c_workspace", "slampp_p2c_chi2_f64",
+                           cam_states.device, m, ops, (chi2,))
+    launches["p2c_chi2"] += 1
     return chi2

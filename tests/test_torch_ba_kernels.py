@@ -25,6 +25,7 @@ from slampp_tpu_torch.io.datasets import make_venice_ba_arrays
 from slampp_tpu_torch.linear import ba_schur
 from slampp_tpu_torch.models import ba as ba_models
 from slampp_tpu_torch.ops import ba_kernels as bak
+from _cuda_host import host_library  # tests/ is on the path of every test module
 
 torch.set_num_threads(1)
 SCENE = {"n_cams": 12, "n_points": 400, "mean_track": 5}
@@ -142,33 +143,13 @@ def test_optimize_on_cpu_launches_nothing():
 
 
 def _host_kernel_library():
-    """csrc/ba_kernels.cu built with the host C++ compiler over
-    tests/_cuda_host.h (each launch rewritten as a call of its
-    ``host_launch``), bound through ctypes as ``ops/_cuda.load`` binds the
-    card's library."""
+    """csrc/ba_kernels.cu built for the host (``tests/_cuda_host.py``),
+    bound through ctypes as ``ops/_cuda.load`` binds the card's library."""
     import ctypes
-    import os
-    import re
-    import shutil
-    from pathlib import Path
 
     from slampp_tpu_torch.ops import _cuda
 
-    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    host_h = (Path(__file__).resolve().parent / "_cuda_host.h").read_text()
-    src = _cuda._BA_SOURCE.read_text().replace("#include <cuda_runtime.h>", host_h)
-    src, n = re.subn(r"(\w+<\w+>)<<<(.*?)>>>\((.*?)\);",
-                     r"host_launch(\2, [&]() { \1(\3); });", src, flags=re.S)
-    assert n == 1
-    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    host_src = _cuda.BUILD_DIR / "ba_kernels_host.cpp"
-    tmp = host_src.with_suffix(f".{os.getpid()}.tmp")
-    tmp.write_text(src)
-    os.replace(tmp, host_src)
-    flags = ("-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-ffp-contract=off")
-    lib = ctypes.CDLL(str(_cuda.compile_shared(host_src, cxx, flags, {})))
+    lib = host_library(_cuda._BA_SOURCE, 1)
     ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
     lib.slampp_p2c_workspace.argtypes = [i64, ctypes.POINTER(i64)]
     lib.slampp_p2c_linearize_f64.argtypes = [ptr] * 6 + [i64] + [ptr] * 8
