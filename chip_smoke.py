@@ -215,7 +215,8 @@ the run with a non-zero exit code and no result line:
               scene (871 / 110,000 / track 10, SC 5226 x 5226 f64, 218 MB
               all-reduced per step), 5 LM iterations: chi2 within 1e-6 of
               JAX_REF["ba-venice-f64"] and 1e-8 of this run's ba-venice-f64,
-              5 accepted, chi2 at the start within 1e-9;
+              5 accepted, chi2 at the start within 1e-9, the BA
+              reprojection kernel launched (p2c_launches);
   dist-ba-venice-2  2 gloo ranks on the card, the same scene: within 1e-9
               of dist-ba-venice, the same accepted count, both ranks on cuda;
   dist-marginals  NCCL, 1 rank: distributed_big_ba_marginals at 871 / 30,000
@@ -1591,7 +1592,7 @@ def _dist_phases(dev) -> dict:
     ok = (rel <= TOL_DIST["dist-ba-venice"] and rel_own <= TOL_DIST["dist-ba-venice-own"]
           and res["lm_accepted"] == ref["lm_accepted"] and res["n_obs"] == ref["n_obs"]
           and abs(res["chi2_init"] - ref["chi2_init"]) <= 1e-9 * ref["chi2_init"]
-          and res["backend"] == "nccl")
+          and res["backend"] == "nccl" and res["p2c_launches"]["p2c_linearize"] > 0)
     _line("dist-ba-venice", none_launched("dist-ba-venice", res) and ok,
           time.perf_counter() - t0, reference=ref, rel_err=rel, rel_err_own=rel_own,
           chi2_own=own, tol=TOL_DIST["dist-ba-venice"], **res)

@@ -37,6 +37,7 @@ from slampp_tpu_torch.apps.manhattan import _option, _sync
 from slampp_tpu_torch.core.assembly import graph_chi2
 from slampp_tpu_torch.io.datasets import make_manhattan, make_venice_ba_arrays
 from slampp_tpu_torch.io.parser import build_system, g2o_file, parse_file
+from slampp_tpu_torch.ops import ba_kernels as bak
 from slampp_tpu_torch.ops import dense_kernels as dk
 from slampp_tpu_torch.parallel.distributed import (
     distributed_gn_step,
@@ -154,10 +155,12 @@ def _venice_rank(problem, n_iters, backend, device):
     t_first = time.perf_counter() - t0
     mesh.stats.reset()
     dk.reset_launches()
+    bak.reset_launches()
     t0 = time.perf_counter()
     applied = solver.optimize(max_iterations=n_iters, min_dx_norm=0.0)
     _sync(mesh.device)
     dt = time.perf_counter() - t0
+    p2c_launches = dict(bak.launches)
     steps = mesh.stats.calls // 2  # each step all-reduces twice
     collectives = _collectives(mesh, steps)
     out = {"device": str(mesh.device), "backend": mesh.backend, "n_cams": sh.plan.n_c,
@@ -166,7 +169,7 @@ def _venice_rank(problem, n_iters, backend, device):
            "n_iters": n_iters, "iters_per_sec": n_iters / dt, "t_optimize_s": dt,
            "lm_accepted": applied, "chi2_init": chi2_0, "chi2_final": solver.chi2(),
            "t_symbolic_s": t_sym, "t_first_step_s": t_first, "steps": steps,
-           "launches": dict(dk.launches), **collectives}
+           "launches": dict(dk.launches), "p2c_launches": p2c_launches, **collectives}
     if mesh.device.type == "cuda":
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated(mesh.device) / 1e9
     out["n_obs"] = int(mesh.all_reduce(torch.tensor([sh.plan.n_obs], device=mesh.device))[0])

@@ -53,6 +53,7 @@ from slampp_tpu_torch.ops.segments import (
     grouped_segsum_first,
     plan_grouped_segments,
 )
+from slampp_tpu_torch.solvers.lm import lm_loop
 from slampp_tpu_torch.utils.device import require_device
 from slampp_tpu_torch.utils.spans import span, spanned
 
@@ -119,17 +120,25 @@ def ba_system_arrays(system):
     return cam_ids, lm_ids, cams, lms, oc, ol, uv, info, anchor_cam, anchor_lm
 
 
+def set_ba_states(system, cam_ids, lm_ids, cams: torch.Tensor, lms: torch.Tensor) -> None:
+    """Writes camera and landmark states back to a BA GraphSystem, row i to
+    vertex ``cam_ids[i]`` / ``lm_ids[i]``."""
+    for ids, states in ((cam_ids, cams), (lm_ids, lms)):
+        for v, x in zip(ids, states.cpu().numpy()):
+            system.set_vertex_state(v, x)
+
+
 def build_ba_schur_plan(system, device="cuda") -> BASchurPlan:
     """The host symbolic phase of a BA GraphSystem (cam / xyz vertices,
     edge_p2c)."""
-    _, _, cams, lms, oc, ol, uv, info, anchor_cam, anchor_lm = ba_system_arrays(system)
-    return build_ba_schur_plan_arrays(len(cams), len(lms), oc, ol, uv, info,
-                                      anchor_cam=anchor_cam, anchor_lm=anchor_lm, device=device)
+    _, _, cams, lms, *obs = ba_system_arrays(system)
+    return build_ba_schur_plan_arrays(len(cams), len(lms), *obs, device=device)
 
 
-def _pair_buckets(starts, ends, bucket_base: int = 2, min_cap: int = 8):
-    """``plan_grouped_segments``' size classes, as (seg_ids, starts, sizes,
-    cap) rows."""
+def segment_buckets(starts, ends, device, bucket_base: int = 2, min_cap: int = 8):
+    """``plan_grouped_segments``' size classes of the segments [starts[g],
+    ends[g]) (host arrays), as :class:`PairBucket` s on ``device``."""
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     sizes = ends - starts
     out, cap = [], min_cap
     remaining = np.flatnonzero(sizes > 0)
@@ -137,9 +146,22 @@ def _pair_buckets(starts, ends, bucket_base: int = 2, min_cap: int = 8):
         in_b = remaining[sizes[remaining] <= cap]
         remaining = remaining[sizes[remaining] > cap]
         if len(in_b):
-            out.append((in_b, starts[in_b], sizes[in_b], cap))
+            out.append(PairBucket(t(in_b), t(starts[in_b]), t(sizes[in_b]), cap))
         cap *= bucket_base
-    return out
+    return tuple(out)
+
+
+def padded_chunks(buckets, dummy: int, max_chunk: int):
+    """The segments of each :class:`PairBucket` in chunks of at most
+    ``max_chunk`` padded rows: yields (the chunk's segment ids, its (rows,
+    cap) row indices, ``dummy`` past each segment's end)."""
+    for seg_ids, starts, sizes, cap in buckets:
+        iota = torch.arange(cap, device=starts.device)
+        rows = max(1, max_chunk // cap)
+        for r0 in range(0, seg_ids.shape[0], rows):
+            st, sz = starts[r0:r0 + rows], sizes[r0:r0 + rows]
+            yield seg_ids[r0:r0 + rows], torch.where(iota[None, :] < sz[:, None],
+                                                     st[:, None] + iota[None, :], dummy)
 
 
 def _device_pairs(oc, ol, lm_starts, deg, M2: int, n_c: int):
@@ -212,8 +234,6 @@ def build_ba_schur_plan_arrays(n_c: int, n_l: int, oc, ol, uv, info, anchor_cam:
     if M2 != int(counts.sum()):
         raise ValueError(f"pair count mismatch: {M2} != {int(counts.sum())}")
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    pair_buckets = tuple(PairBucket(t(s), t(st), t(sz), cap)
-                         for s, st, sz, cap in _pair_buckets(starts, ends))
     pair_e, pair_f = _device_pairs(t(oc), t(ol), t(lm_starts.astype(np.int64)), t(deg), M2, n_c)
     dummy = torch.full((1,), m, dtype=torch.int64, device=device)
 
@@ -231,12 +251,12 @@ def build_ba_schur_plan_arrays(n_c: int, n_l: int, oc, ol, uv, info, anchor_cam:
         obs_info=torch.as_tensor(info, dtype=torch.float64, device=device),
         lm_grp=lm_grp.to(device), cam_grp=cam_grp.to(device),
         pair_e=torch.cat([pair_e, dummy]), pair_f=torch.cat([pair_f, dummy]),
-        pair_buckets=pair_buckets, sc_inv_map=t(sc_inv_map),
+        pair_buckets=segment_buckets(starts, ends, device), sc_inv_map=t(sc_inv_map),
         anchor_cam=int(anchor_cam), anchor_lm=int(anchor_lm),
     )
 
 
-def _inv3(D: torch.Tensor) -> torch.Tensor:
+def inv3(D: torch.Tensor) -> torch.Tensor:
     """Closed-form (n, 3, 3) inverses by the adjugate, as the JAX package's
     ``_inv3_last``."""
     a, b, c = D[:, 0, 0], D[:, 0, 1], D[:, 0, 2]
@@ -257,34 +277,79 @@ def _inv3(D: torch.Tensor) -> torch.Tensor:
     return adj * inv_det[:, None, None]
 
 
-def _pair_sc_mass(plan: BASchurPlan, BD: torch.Tensor, B: torch.Tensor,
-                  max_chunk: int = 1_000_000, pair_f32: bool = True) -> torch.Tensor:
+def observation_sums(plan: BASchurPlan, r, Jp, Jc, WJp, WJc):
+    """The landmark and camera sums of ``ba_kernels.p2c_linearize``'s
+    per-observation terms: (D (n_l, 3, 3), g_l (n_l, 3), H_cc's diagonal
+    blocks (n_c, 6, 6), g_c (n_c, 6), B (m, 6, 3)), D and H_cc undamped,
+    B_e = J_c^T W J_p."""
+    D = grouped_segsum_first(Jp.transpose(1, 2) @ WJp, plan.lm_grp)
+    g_l = grouped_segsum_first(torch.einsum("mri,mr->mi", WJp, r), plan.lm_grp)
+    Hcc_diag = grouped_segsum_first(Jc.transpose(1, 2) @ WJc, plan.cam_grp)
+    g_c = grouped_segsum_first(torch.einsum("mri,mr->mi", WJc, r), plan.cam_grp)
+    return D, g_l, Hcc_diag, g_c, Jc.transpose(1, 2) @ WJp
+
+
+def pair_sc_mass(plan: BASchurPlan, BD: torch.Tensor, B: torch.Tensor,
+                 max_chunk: int = 1_000_000, pair_f32: bool = True) -> torch.Tensor:
     """The half-triangle SC mass: for every distinct (cam_i, cam_j) block,
     the sum over the unordered landmark-sharing observation pairs of BD_e
-    B_f^T (e == f pairs scaled by 0.5, so that the caller's mirror G + G^T
-    restores the full ordered sum).  BD, B: (m, 6, 3).  Returns
-    (n_distinct + 1, 6, 6) with a zero block at n_distinct.  Each bucket is
-    reduced in chunks of at most ``max_chunk`` padded pairs; ``pair_f32``
-    forms the products in float32 (the SC is equilibrated in float32
-    downstream anyway)."""
+    B_f^T (e == f pairs scaled by 0.5, so that the mirror G + G^T in
+    :func:`reduced_camera_system` restores the full ordered sum).  BD = B
+    D^-1 per observation, B: (m, 6, 3).  Returns (n_distinct + 1, 6, 6)
+    with a zero block at n_distinct.  Each bucket is reduced in chunks of
+    at most ``max_chunk`` padded pairs; ``pair_f32`` forms the products in
+    float32 (the SC is equilibrated in float32 downstream anyway)."""
     dt = torch.float32 if pair_f32 else BD.dtype
     BDp = torch.cat([BD.to(dt), BD.new_zeros((1, 6, 3), dtype=dt)], 0)  # (m + 1, 6, 3)
     Bp = torch.cat([B.to(dt), B.new_zeros((1, 6, 3), dtype=dt)], 0)
-    dummy = plan.pair_e.shape[0] - 1
     out = BD.new_zeros((plan.n_distinct + 1, 6, 6), dtype=dt)
-    for bk in plan.pair_buckets:
-        cap = bk.cap
-        iota = torch.arange(cap, device=BD.device)
-        rows_per_chunk = max(1, max_chunk // cap)
-        for r0 in range(0, bk.seg_ids.shape[0], rows_per_chunk):
-            st = bk.starts[r0:r0 + rows_per_chunk]
-            sz = bk.sizes[r0:r0 + rows_per_chunk]
-            ix = torch.where(iota[None, :] < sz[:, None], st[:, None] + iota[None, :], dummy)
-            pe, pf = plan.pair_e[ix], plan.pair_f[ix]  # (rows, cap)
-            scale = torch.where(pe == pf, 0.5, 1.0).to(dt)
-            prod = torch.einsum("rcik,rcjk->rcij", BDp[pe], Bp[pf]) * scale[:, :, None, None]
-            out[bk.seg_ids[r0:r0 + rows_per_chunk]] = prod.sum(1)
+    for seg, ix in padded_chunks(plan.pair_buckets, plan.pair_e.shape[0] - 1, max_chunk):
+        pe, pf = plan.pair_e[ix], plan.pair_f[ix]  # (rows, cap)
+        scale = torch.where(pe == pf, 0.5, 1.0).to(dt)
+        prod = torch.einsum("rcik,rcjk->rcij", BDp[pe], Bp[pf]) * scale[:, :, None, None]
+        out[seg] = prod.sum(1)
     return out
+
+
+def reduced_camera_system(plan: BASchurPlan, mass: torch.Tensor, diag: torch.Tensor,
+                          out: torch.Tensor = None) -> torch.Tensor:
+    """The reduced camera system (6 n_c, 6 n_c) in ``diag``'s dtype: the
+    diagonal blocks ``diag`` (n_c, 6, 6), as the caller damped them, minus
+    the pair mass mirrored, block (ci, cj) -= G_ij + G_ji^T; written into
+    ``out`` when given."""
+    n_c = plan.n_c
+    Gg = mass[plan.sc_inv_map].to(diag.dtype).reshape(n_c, n_c, 6, 6)
+    SCb = -(Gg + Gg.permute(1, 0, 3, 2))
+    ids = torch.arange(n_c, device=SCb.device)
+    SCb[ids, ids] += diag
+    if out is None:
+        out = SCb.new_empty((6 * n_c, 6 * n_c))
+    out.view(n_c, 6, n_c, 6).copy_(SCb.permute(0, 2, 1, 3))
+    return out
+
+
+def reduced_rhs(plan: BASchurPlan, BD: torch.Tensor, g_l: torch.Tensor,
+                g_c: torch.Tensor) -> torch.Tensor:
+    """The reduced right-hand side (6 n_c,): -(g_c - sum_l U_l D_l^-1 g_l),
+    per observation BD_e g_l."""
+    r2 = grouped_segsum_first(torch.einsum("mik,mk->mi", BD, g_l[plan.obs_lm]), plan.cam_grp)
+    return -(g_c - r2).reshape(-1)
+
+
+def sc_cholesky(SC: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor of the symmetrized SC, NaN where it fails."""
+    L, info = torch.linalg.cholesky_ex(0.5 * (SC + SC.T))
+    return torch.where(info == 0, L, torch.nan)
+
+
+def back_substitute(plan: BASchurPlan, B: torch.Tensor, Dinv: torch.Tensor, g_l: torch.Tensor,
+                    dx_c: torch.Tensor):
+    """(dx_c as (n_c, 6) blocks, dx_l (n_l, 3)): dx_l = D^-1 (-g_l - sum_e
+    B_e^T dx_c[cam_e])."""
+    dxc_blocks = dx_c.reshape(plan.n_c, 6)
+    bt = torch.einsum("mik,mi->mk", B, dxc_blocks[plan.obs_cam])  # (m, 3)
+    BT = grouped_segsum_first(bt, plan.lm_grp)
+    return dxc_blocks, torch.einsum("lij,lj->li", Dinv, -g_l - BT)
 
 
 def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: torch.Tensor,
@@ -293,7 +358,6 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
     (n_c, 11), lm_states (n_l, 3).  Returns (new_cams, new_lms, dx_norm,
     chi2, denom); ``sc_f64`` factors SC in float64, else equilibrated
     float32 with one float64 refinement."""
-    n_c = plan.n_c
     with span("ba.jacobians"):
         # r (m, 2), Jp (m, 2, 3), Jc (m, 2, 6), W Jp, W Jc and chi2: one
         # kernel launch on the card (ops/ba_kernels.py)
@@ -301,45 +365,33 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
             cam_states, lm_states, plan.obs_cam, plan.obs_lm, plan.obs_uv, plan.obs_info)
 
     with span("ba.landmarks"):
-        D = grouped_segsum_first(Jp.transpose(1, 2) @ WJp, plan.lm_grp)  # (n_l, 3, 3)
-        g_l = grouped_segsum_first(torch.einsum("mri,mr->mi", WJp, r), plan.lm_grp)  # (n_l, 3)
-        D = D + alpha * torch.eye(3, dtype=D.dtype, device=D.device)
+        D, g_l, Hcc_diag, g_c, B = observation_sums(plan, r, Jp, Jc, WJp, WJc)
+        eye3 = torch.eye(3, dtype=D.dtype, device=D.device)
+        D = D + alpha * eye3
         if plan.anchor_lm >= 0:
-            D[plan.anchor_lm] += torch.eye(3, dtype=D.dtype, device=D.device)
-        Dinv = _inv3(D)
-        Hcc_diag = grouped_segsum_first(Jc.transpose(1, 2) @ WJc, plan.cam_grp)  # (n_c, 6, 6)
-        g_c = grouped_segsum_first(torch.einsum("mri,mr->mi", WJc, r), plan.cam_grp)  # (n_c, 6)
-        B = Jc.transpose(1, 2) @ WJp  # (m, 6, 3)
+            D[plan.anchor_lm] += eye3
+        Dinv = inv3(D)
         BD = B @ Dinv[plan.obs_lm]  # (m, 6, 3)
 
     with span("ba.pairs"):
-        mass = _pair_sc_mass(plan, BD, B, pair_f32=pair_f32)
+        mass = pair_sc_mass(plan, BD, B, pair_f32=pair_f32)
 
     with span("ba.sc_build"):
-        Gg = mass[plan.sc_inv_map].to(r.dtype).reshape(n_c, n_c, 6, 6)
-        # block (ci, cj) += the transpose of block (cj, ci)
-        SCb = -(Gg + Gg.permute(1, 0, 3, 2))
-        ids = torch.arange(n_c, device=SCb.device)
-        diag_add = Hcc_diag + alpha * torch.eye(6, dtype=SCb.dtype, device=SCb.device)
+        eye6 = torch.eye(6, dtype=Hcc_diag.dtype, device=Hcc_diag.device)
+        diag = Hcc_diag + alpha * eye6
         if plan.anchor_cam >= 0:
-            diag_add[plan.anchor_cam] += torch.eye(6, dtype=SCb.dtype, device=SCb.device)
-        SCb[ids, ids] += diag_add
-        SC = SCb.permute(0, 2, 1, 3).reshape(n_c * 6, n_c * 6)
-        # reduced rhs: g_c - sum_l U_l D_l^-1 g_l (per observation BD_e g_l)
-        r2 = grouped_segsum_first(torch.einsum("mik,mk->mi", BD, g_l[plan.obs_lm]), plan.cam_grp)
-        rhs = -(g_c - r2).reshape(-1)
+            diag[plan.anchor_cam] += eye6
+        SC = reduced_camera_system(plan, mass, diag)
+        rhs = reduced_rhs(plan, BD, g_l, g_c)
 
     with span("ba.sc_factor"):
         if sc_f64:
-            L, info = torch.linalg.cholesky_ex(0.5 * (SC + SC.T))
-            L = torch.where(info == 0, L, torch.nan)
-            dx_c = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+            dx_c = torch.cholesky_solve(rhs[:, None], sc_cholesky(SC))[:, 0]
         else:
             s = 1.0 / torch.sqrt(torch.clamp_min(torch.diagonal(SC), 1e-30))
             SCs = (SC * s[:, None] * s[None, :]).float()
             SCs = SCs + 1e-6 * torch.eye(SC.shape[0], dtype=torch.float32, device=SC.device)
-            L, info = torch.linalg.cholesky_ex(0.5 * (SCs + SCs.T))
-            L = torch.where(info == 0, L, torch.nan)
+            L = sc_cholesky(SCs)
 
             def solve32(rr):
                 return s * torch.cholesky_solve((s * rr).float()[:, None], L)[:, 0].to(SC.dtype)
@@ -348,11 +400,7 @@ def ba_schur_lm_step(plan: BASchurPlan, cam_states: torch.Tensor, lm_states: tor
             dx_c = dx_c + solve32(rhs - SC @ dx_c)
 
     with span("ba.backsub"):
-        # dx_l = Dinv (-g_l - sum_e B_e^T dx_c[cam_e])
-        dxc_blocks = dx_c.reshape(n_c, 6)
-        bt = torch.einsum("mik,mi->mk", B, dxc_blocks[plan.obs_cam])  # (m, 3)
-        BT = grouped_segsum_first(bt, plan.lm_grp)
-        dx_l = torch.einsum("lij,lj->li", Dinv, -g_l - BT)
+        dxc_blocks, dx_l = back_substitute(plan, B, Dinv, g_l, dx_c)
         new_cams = ba_models._cam_retract(cam_states, dxc_blocks)
         new_lms = lm_states + dx_l
         sq = torch.dot(dx_c, dx_c) + (dx_l * dx_l).sum()
@@ -407,57 +455,29 @@ class BigBASolver:
 
     def _prepare(self):
         require_device(self.device, "BigBASolver")
-        if self.plan is None:
-            self.plan = build_ba_schur_plan(self.system, self.device)
         if self.system is None:
             return None, None, self._cams, self._lms
-        cam_ids = sorted(v for v, (t, _) in self.system.vertex_index.items() if t == "cam")
-        lm_ids = sorted(v for v, (t, _) in self.system.vertex_index.items() if t == "xyz")
-        cams = torch.as_tensor(np.stack([self.system.vertex_state(v) for v in cam_ids]),
-                               dtype=torch.float64, device=self.device)
-        lms = torch.as_tensor(np.stack([self.system.vertex_state(v) for v in lm_ids]),
-                              dtype=torch.float64, device=self.device)
-        return cam_ids, lm_ids, cams, lms
+        cam_ids, lm_ids, cams, lms, *obs = ba_system_arrays(self.system)
+        if self.plan is None:
+            self.plan = build_ba_schur_plan_arrays(len(cams), len(lms), *obs, device=self.device)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=self.device)  # noqa: E731
+        return cam_ids, lm_ids, t(cams), t(lms)
 
     @spanned("ba.solve")
     def optimize(self, max_iterations: int = 5, min_dx_norm: float = 0.01) -> int:
         cam_ids, lm_ids, cams, lms = self._prepare()
-        alpha = self.tau * 1e3  # a scale-free start, adapted by the gain ratio
-        nu = 2.0
-        last_error = float(ba_chi2_only(self.plan, cams, lms))
-        applied = 0
-        for it in range(max_iterations):
-            with span("ba.iteration"):
-                nc, nl, dxn, _, denom = self.step(cams, lms, alpha)
-                dxn = float(dxn)
-                if not np.isfinite(dxn) or dxn <= min_dx_norm:
-                    break
-                f_error = float(ba_chi2_only(self.plan, nc, nl))
-                rho = (last_error - f_error) / max(float(denom), 1e-300)
-                if rho > 0:
-                    with span("ba.lm_accept"):
-                        alpha *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
-                        nu = 2.0
-                        cams, lms = nc, nl
-                        last_error = f_error
-                        applied += 1
-                        if self.verbose:
-                            print(f"BigBA iter {it}: accepted chi2={f_error:.2f} "
-                                  f"alpha={alpha:.2e}")
-                else:
-                    with span("ba.lm_reject"):
-                        alpha *= nu
-                        nu *= 2.0
-                        if self.verbose:
-                            print(f"BigBA iter {it}: rejected chi2={f_error:.2f} "
-                                  f"alpha={alpha:.2e}")
-        self._cams, self._lms = cams, lms
+
+        def step(state, alpha):
+            nc, nl, dxn, _, denom = self.step(*state, alpha)
+            return (nc, nl), denom, dxn
+
+        # alpha starts scale-free and is adapted by the gain ratio
+        (self._cams, self._lms), applied, _, _ = lm_loop(
+            (cams, lms), step, lambda s: float(ba_chi2_only(self.plan, *s)), self.tau * 1e3,
+            max_iterations, min_dx_norm, ("ba.iteration", "ba.lm_accept", "ba.lm_reject"),
+            self.verbose and "BigBA iter {it}: {verdict} chi2={chi2:.2f} alpha={alpha:.2e}")
         if self.system is not None:
-            cams_np, lms_np = cams.cpu().numpy(), lms.cpu().numpy()
-            for i, v in enumerate(cam_ids):
-                self.system.set_vertex_state(v, cams_np[i])
-            for i, v in enumerate(lm_ids):
-                self.system.set_vertex_state(v, lms_np[i])
+            set_ba_states(self.system, cam_ids, lm_ids, self._cams, self._lms)
         return applied
 
     def chi2(self) -> float:

@@ -125,6 +125,26 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
 
 
+def check_operands(name: str, operands) -> None:
+    """Raise unless every (tensor, shape, dtype, alignment in bytes) row of
+    ``operands`` is on the first one's CUDA device, of its shape,
+    contiguous, of its dtype (else TypeError) and aligned."""
+    dev = operands[0][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t, shape, dtype, align in operands:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on different devices ({t.device}, {dev})")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: need shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: need {dtype}, got {t.dtype}")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: need {align}-byte aligned operands")
+
+
 def launch_reduction(what: str, ws_symbol: str, symbol: str, device, m: int, operands,
                      outputs) -> None:
     """Launch the kernel entry point ``symbol(*operands, m, *outputs, ws,

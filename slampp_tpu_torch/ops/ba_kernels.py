@@ -72,30 +72,15 @@ def p2c_chi2_plain(cam_states, lm_states, obs_cam, obs_lm, obs_uv, obs_info):
 # ---------------------------------------------------------------------------
 
 
-def _cuda_args(name: str, cams, lms, obs_cam, obs_lm, uv, info) -> int:
-    """Validate the kernel's operands; returns the number of observations."""
-    dev = cams.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
+def _spec(cams, lms, obs_cam, obs_lm, uv, info):
+    """(the number of observations, the kernel's operands as
+    ``_cuda.check_operands`` rows)."""
     m = obs_cam.shape[0] if obs_cam.dim() == 1 else -1
-    shapes = ((cams, (cams.shape[0], 11)), (lms, (lms.shape[0], 3)), (obs_cam, (m,)),
-              (obs_lm, (m,)), (uv, (m, 2)), (info, (m, 2, 2)))
-    for t, want in shapes:
-        if t.device != dev:
-            raise ValueError(f"{name}: operands on different devices ({t.device}, {dev})")
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name}: need shape {want}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-        if t.data_ptr() % 16:  # the kernel's 16-byte loads of uv and info
-            raise ValueError(f"{name}: operands must be 16-byte aligned")
-    for t in (cams, lms, uv, info):
-        if t.dtype != torch.float64:
-            raise TypeError(f"{name}: unsupported dtype {t.dtype} (float64 only)")
-    for t in (obs_cam, obs_lm):
-        if t.dtype != torch.int64:
-            raise TypeError(f"{name}: indices must be int64, got {t.dtype}")
-    return m
+    f64, i64 = torch.float64, torch.int64
+    # every operand 16-byte aligned: the kernel loads uv and info as double2
+    return m, ((cams, (cams.shape[0], 11), f64, 16), (lms, (lms.shape[0], 3), f64, 16),
+               (obs_cam, (m,), i64, 16), (obs_lm, (m,), i64, 16), (uv, (m, 2), f64, 16),
+               (info, (m, 2, 2), f64, 16))
 
 
 def _on_cpu(*ts) -> bool:
@@ -110,7 +95,8 @@ def p2c_linearize(cam_states, lm_states, obs_cam, obs_lm, obs_uv, obs_info):
     ops = (cam_states, lm_states, obs_cam, obs_lm, obs_uv, obs_info)
     if _on_cpu(*ops):
         return p2c_linearize_plain(*ops)
-    m = _cuda_args("p2c_linearize", *ops)
+    m, spec = _spec(*ops)
+    _cuda.check_operands("p2c_linearize", spec)
     new = cam_states.new_empty
     outs = (new((m, 2)), new((m, 2, 3)), new((m, 2, 6)), new((m, 2, 3)), new((m, 2, 6)),
             new(()))
@@ -126,7 +112,8 @@ def p2c_chi2(cam_states, lm_states, obs_cam, obs_lm, obs_uv, obs_info):
     ops = (cam_states, lm_states, obs_cam, obs_lm, obs_uv, obs_info)
     if _on_cpu(*ops):
         return p2c_chi2_plain(*ops)
-    m = _cuda_args("p2c_chi2", *ops)
+    m, spec = _spec(*ops)
+    _cuda.check_operands("p2c_chi2", spec)
     chi2 = cam_states.new_empty(())
     _cuda.launch_reduction("p2c_chi2", "slampp_p2c_workspace", "slampp_p2c_chi2_f64",
                            cam_states.device, m, ops, (chi2,))

@@ -45,31 +45,18 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _cuda_args(name: str, points, cams, local_idx, meas, sigma_inv, valid, order=None) -> int:
-    """Validate the kernel's operands; returns the number of edges."""
-    dev = points.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
+def _spec(points, cams, local_idx, meas, sigma_inv, valid, order=None):
+    """(the number of edges, the kernel's operands as
+    ``_cuda.check_operands`` rows)."""
     m = local_idx.shape[0] if local_idx.dim() == 2 else -1
+    f64, i64 = torch.float64, torch.int64
     # (operand, shape, dtype, alignment in bytes the kernel's loads need)
-    shapes = [(points, (points.shape[0], 3), torch.float64, 8),
-              (cams, (cams.shape[0], 12), torch.float64, 8),
-              (local_idx, (m, 2), torch.int64, 8), (meas, (m, 2), torch.float64, 16),
-              (sigma_inv, (m, 2, 2), torch.float64, 16), (valid, (m,), torch.bool, 1)]
+    ops = [(points, (points.shape[0], 3), f64, 8), (cams, (cams.shape[0], 12), f64, 8),
+           (local_idx, (m, 2), i64, 8), (meas, (m, 2), f64, 16),
+           (sigma_inv, (m, 2, 2), f64, 16), (valid, (m,), torch.bool, 1)]
     if order is not None:
-        shapes.append((order, (m,), torch.int64, 8))
-    for t, want, dtype, align in shapes:
-        if t.device != dev:
-            raise ValueError(f"{name}: operands on different devices ({t.device}, {dev})")
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name}: need shape {want}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: need {dtype}, got {t.dtype}")
-        if t.data_ptr() % align:
-            raise ValueError(f"{name}: need {align}-byte aligned operands")
-    return m
+        ops.append((order, (m,), i64, 8))
+    return m, ops
 
 
 def sim3_g_terms(points, cams, local_idx, meas, sigma_inv, valid, order=None):
@@ -80,7 +67,8 @@ def sim3_g_terms(points, cams, local_idx, meas, sigma_inv, valid, order=None):
     chi2 = sum of r^T W r over the ``valid`` edges (the terms are not
     masked), a 0-d tensor.  float64 and contiguous outputs."""
     ops = (points, cams, local_idx, meas, sigma_inv, valid)
-    m = _cuda_args("sim3_g_terms", *ops, order)
+    m, spec = _spec(*ops, order)
+    _cuda.check_operands("sim3_g_terms", spec)
     new = points.new_empty
     outs = (new((m, 7, 7)), new((m, 7)), new((m, 3, 3)), new((m, 3)), new((m, 7, 3)), new(()))
     _cuda.launch_reduction("sim3_g_terms", "slampp_sim3_g_workspace", "slampp_sim3_g_terms_f64",
@@ -93,7 +81,8 @@ def sim3_g_chi2(points, cams, local_idx, meas, sigma_inv, valid):
     """sum of r^T W r over the valid edges (operands as
     :func:`sim3_g_terms`), a 0-d tensor on the operands' device."""
     ops = (points, cams, local_idx, meas, sigma_inv, valid)
-    m = _cuda_args("sim3_g_chi2", *ops)
+    m, spec = _spec(*ops)
+    _cuda.check_operands("sim3_g_chi2", spec)
     chi2 = points.new_empty(())
     _cuda.launch_reduction("sim3_g_chi2", "slampp_sim3_g_workspace", "slampp_sim3_g_chi2_f64",
                            points.device, m, ops, (chi2,))

@@ -14,20 +14,20 @@ landmarks back-substitute rank-locally:
   replicated: dense Cholesky of SC -> dx_c
   local:      dx_l = D_l^-1 (g_l - U_l^T dx_c)
 
-Rank r owns landmarks [r per, (r + 1) per) with per = ceil(n_l / world);
-the last rank's padding slots get an identity D and stay put.  The
-venice-class path (:class:`BigBAShards`, :func:`distributed_big_ba_step`,
+Rank r owns landmarks [r per, (r + 1) per) with per = ceil(n_l / world); the
+last rank's padding slots get an identity D and stay put.  The venice-class
+path (:class:`BigBAShards`, :func:`distributed_big_ba_step`,
 :class:`DistributedBigBASolver`, :func:`distributed_big_ba_marginals`)
-builds each rank's plan with ``linear/ba_schur.build_ba_schur_plan_arrays``
-on its own landmarks (the pair table made on the device) and reduces the
-SC off-diagonal mass per observation pair with float64 products, as the
-JAX module does; :func:`distributed_ba_lm_step` is the JAX module's dense
-form, a (per, 6 n_c, 3) accumulator per rank, for small problems.  The
-replicated SC factor is ``torch.linalg.cholesky_ex`` (``lax.linalg.cholesky``
-in the JAX module, outside any kernel); a failed factorization gives NaN and
-the LM loop stops on a non-finite step.  Each step marks its layers as
-profiler ranges (``dist.jacobians``, ``dist.pairs``, ``dist.allreduce``,
-``dist.sc_factor``, ``dist.backsub``).
+builds each rank's plan on its own landmarks and runs the single-card step's
+pieces (``linear/ba_schur.py``: the hand-written reprojection kernel on the
+card, the pair-reduced SC mass in float64 products as the JAX module does)
+around its collectives; :func:`distributed_ba_lm_step` is the JAX module's
+dense form, a (per, 6 n_c, 3) accumulator per rank, for small problems.  The
+replicated SC factor is ``torch.linalg.cholesky_ex``
+(``lax.linalg.cholesky`` in the JAX module, outside any kernel); a failed
+factorization gives NaN and the LM loop stops on a non-finite step.  Each
+step marks its layers as profiler ranges (``dist.jacobians``,
+``dist.pairs``, ``dist.allreduce``, ``dist.sc_factor``, ``dist.backsub``).
 """
 
 from __future__ import annotations
@@ -39,17 +39,25 @@ import torch
 
 from slampp_tpu_torch.linear.ba_schur import (
     BASchurPlan,
-    _inv3,
-    _pair_buckets,
-    _pair_sc_mass,
+    back_substitute,
     ba_chi2_only,
     ba_system_arrays,
     build_ba_schur_plan_arrays,
+    inv3,
+    observation_sums,
+    padded_chunks,
+    pair_sc_mass,
+    reduced_camera_system,
+    reduced_rhs,
+    sc_cholesky,
+    segment_buckets,
+    set_ba_states,
 )
 from slampp_tpu_torch.linear.dense import solve_spd
 from slampp_tpu_torch.models import ba as ba_models
-from slampp_tpu_torch.ops.segments import grouped_segsum_first
+from slampp_tpu_torch.ops import ba_kernels
 from slampp_tpu_torch.parallel.distributed import Mesh
+from slampp_tpu_torch.solvers.lm import lm_loop
 from slampp_tpu_torch.utils.spans import span
 
 F64 = torch.float64
@@ -72,7 +80,7 @@ def _damped_landmarks(D, alpha, lm_valid, lo: int, anchor_lm: int):
     loc = anchor_lm - lo
     if anchor_lm >= 0 and 0 <= loc < D.shape[0]:
         D[loc] += eye3
-    return _inv3(torch.where(lm_valid[:, None, None], D, eye3))
+    return inv3(torch.where(lm_valid[:, None, None], D, eye3))
 
 
 def _damp_cameras(SC, alpha, anchor_cam: int):
@@ -81,12 +89,6 @@ def _damp_cameras(SC, alpha, anchor_cam: int):
     SC.diagonal().add_(alpha)
     if anchor_cam >= 0:
         SC.diagonal()[6 * anchor_cam: 6 * anchor_cam + 6] += 1.0
-
-
-def _chol_lower(SC):
-    """The lower factor of the symmetrized SC, NaN where it fails."""
-    L, info = torch.linalg.cholesky_ex(0.5 * (SC + SC.T))
-    return torch.where(info == 0, L, torch.nan)
 
 
 def _gain_terms(mesh: Mesh, dx_c, dx_l, g_c_tot, g_l, alpha):
@@ -139,38 +141,20 @@ def build_big_ba_shards(system, mesh: Mesh) -> BigBAShards:
     return build_big_ba_shards_arrays(cams, lms, oc, ol, uv, info, mesh, anchor_cam, anchor_lm)
 
 
-def _local_terms(sh: BigBAShards, alpha):
-    """The rank's per-observation terms: (chi2, B, BD, D^-1, g_l, g_c,
-    H_cc's block diagonal), B_e = J_c^T W J_p, BD_e = B_e D_l^-1."""
+def _rank_system(sh: BigBAShards, alpha, out):
+    """The rank's observation terms, damped landmark blocks and undamped SC
+    part (float64 pair products, written into ``out`` (6 n_c, 6 n_c)), from
+    ``linear/ba_schur.py``'s pieces: (chi2, B, BD, D^-1, g_l, g_c)."""
     p = sh.plan
     with span("dist.jacobians"):
-        r, (Jp, Jc) = ba_models._edge_p2c_jacobians(
-            (sh.lm_states[p.obs_lm], sh.cam_states[p.obs_cam]), p.obs_uv)
-        W = p.obs_info
-        chi2 = (r * torch.einsum("mij,mj->mi", W, r)).sum()
-        WJc = W @ Jc
-        WJp = W @ Jp
-        D = grouped_segsum_first(Jp.transpose(1, 2) @ WJp, p.lm_grp)
-        g_l = grouped_segsum_first(torch.einsum("mri,mr->mi", WJp, r), p.lm_grp)
+        r, Jp, Jc, WJp, WJc, chi2 = ba_kernels.p2c_linearize(
+            sh.cam_states, sh.lm_states, p.obs_cam, p.obs_lm, p.obs_uv, p.obs_info)
+        D, g_l, Hcc, g_c, B = observation_sums(p, r, Jp, Jc, WJp, WJc)
         Dinv = _damped_landmarks(D, alpha, sh.lm_valid, sh.lo, sh.anchor_lm)
-        Hcc = grouped_segsum_first(Jc.transpose(1, 2) @ WJc, p.cam_grp)
-        g_c = grouped_segsum_first(torch.einsum("mri,mr->mi", WJc, r), p.cam_grp)
-        B = Jc.transpose(1, 2) @ WJp  # (m, 6, 3)
         BD = B @ Dinv[p.obs_lm]
-    return chi2, B, BD, Dinv, g_l, g_c, Hcc
-
-
-def _sc_part(sh: BigBAShards, B, BD, Hcc, out):
-    """Writes the rank's SC part, H_cc's blocks minus the pair-reduced mass
-    (float64 pair products, mirrored G + G^T), into ``out`` (6 n_c, 6 n_c)."""
-    n_c = sh.plan.n_c
     with span("dist.pairs"):
-        mass = _pair_sc_mass(sh.plan, BD, B, pair_f32=False)
-        Gg = mass[sh.plan.sc_inv_map].reshape(n_c, n_c, 6, 6)
-        SCb = -(Gg + Gg.permute(1, 0, 3, 2))
-        ids = torch.arange(n_c, device=SCb.device)
-        SCb[ids, ids] += Hcc
-        out.view(n_c, 6, n_c, 6).copy_(SCb.permute(0, 2, 1, 3))
+        reduced_camera_system(p, pair_sc_mass(p, BD, B, pair_f32=False), Hcc, out)
+    return chi2, B, BD, Dinv, g_l, g_c
 
 
 def distributed_big_ba_step(shards: BigBAShards, mesh: Mesh, alpha):
@@ -178,20 +162,17 @@ def distributed_big_ba_step(shards: BigBAShards, mesh: Mesh, alpha):
     the rank's landmark blocks and pair-reduced SC part, ONE all-reduce of
     (SC, rhs, g_c, chi2), the replicated SC Cholesky, the rank-local
     landmark back-substitution, and one all-reduce of the two landmark
-    scalars of the gain.  The math of ``linear/ba_schur.ba_schur_lm_step``
-    (float64 pair products).  Returns (new_cams (replicated), new_lms (this
-    rank's, (per, 3)), dx_norm, chi2, denom)."""
+    scalars of the gain.  ``linear/ba_schur.ba_schur_lm_step``'s pieces
+    (float64 pair products) around the collectives.  Returns (new_cams
+    (replicated), new_lms (this rank's, (per, 3)), dx_norm, chi2, denom)."""
     p = shards.plan
-    n_c = p.n_c
-    N = 6 * n_c
-    chi2, B, BD, Dinv, g_l, g_c, Hcc = _local_terms(shards, alpha)
+    N = 6 * p.n_c
     # one buffer, one collective: SC (N^2), rhs (N), g_c (N), chi2
     buf = torch.empty(N * N + 2 * N + 1, dtype=F64, device=mesh.device)
     SC = buf[: N * N].view(N, N)
-    _sc_part(shards, B, BD, Hcc, SC)
+    chi2, B, BD, Dinv, g_l, g_c = _rank_system(shards, alpha, SC)
     with span("dist.pairs"):
-        r2 = grouped_segsum_first(torch.einsum("mik,mk->mi", BD, g_l[p.obs_lm]), p.cam_grp)
-        buf[N * N: N * N + N] = -(g_c - r2).reshape(-1)
+        buf[N * N: N * N + N] = reduced_rhs(p, BD, g_l, g_c)
         buf[N * N + N: -1] = g_c.reshape(-1)
         buf[-1] = chi2
     mesh.all_reduce(buf)
@@ -199,12 +180,10 @@ def distributed_big_ba_step(shards: BigBAShards, mesh: Mesh, alpha):
 
     with span("dist.sc_factor"):
         _damp_cameras(SC, alpha, shards.anchor_cam)
-        dx_c = torch.cholesky_solve(rhs[:, None], _chol_lower(SC))[:, 0]
+        dx_c = torch.cholesky_solve(rhs[:, None], sc_cholesky(SC))[:, 0]
 
     with span("dist.backsub"):
-        dxc_blocks = dx_c.view(n_c, 6)
-        bt = torch.einsum("mik,mi->mk", B, dxc_blocks[p.obs_cam])
-        dx_l = torch.einsum("lij,lj->li", Dinv, -g_l - grouped_segsum_first(bt, p.lm_grp))
+        dxc_blocks, dx_l = back_substitute(p, B, Dinv, g_l, dx_c)
         new_cams = ba_models._cam_retract(shards.cam_states, dxc_blocks)
         dx_norm, denom = _gain_terms(mesh, dx_c, dx_l, g_c_tot, g_l, alpha)
     return new_cams, shards.lm_states + dx_l, dx_norm, chi2, denom
@@ -245,45 +224,25 @@ class DistributedBigBASolver:
         return self.shards
 
     def optimize(self, max_iterations: int = 5, min_dx_norm: float = 0.01) -> int:
-        """The JAX module's LM loop: alpha from tau * 1e3, each candidate's
-        chi2 from a full step at the candidate, the gain ratio against the
-        step's denominator.  Ends with an all-gather of the landmarks, and
-        writes every state back to the GraphSystem (on every rank)."""
-        sh = self._prepare()
-        alpha = self.tau * 1e3
-        nu = 2.0
-        last_error = float(distributed_big_ba_step(sh, self.mesh, 0.0)[3])
-        applied = 0
-        for _ in range(max_iterations):
-            nc, nl, dxn, _, denom = distributed_big_ba_step(sh, self.mesh, alpha)
-            dxn = float(dxn)
-            if not np.isfinite(dxn) or dxn <= min_dx_norm:
-                break
-            cand = sh._replace(cam_states=nc, lm_states=nl)
-            f_error = float(distributed_big_ba_step(cand, self.mesh, alpha)[3])
-            rho = (last_error - f_error) / max(float(denom), 1e-300)
-            if rho > 0:
-                alpha *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
-                nu = 2.0
-                sh = cand
-                last_error = f_error
-                applied += 1
-                if self.verbose and self.mesh.rank == 0:
-                    print(f"DistBigBA: accepted chi2={f_error:.2f} alpha={alpha:.2e}")
-            else:
-                alpha *= nu
-                nu *= 2.0
-                if self.verbose and self.mesh.rank == 0:
-                    print(f"DistBigBA: rejected chi2={f_error:.2f} alpha={alpha:.2e}")
+        """``solvers/lm.lm_loop`` from alpha = tau * 1e3, each candidate's chi2
+        from a full step at the candidate, as in the JAX module.  Ends with an
+        all-gather of the landmarks, and writes every state back to the
+        GraphSystem (on every rank)."""
+        mesh = self.mesh
+
+        def step(sh, alpha):
+            nc, nl, dxn, _, denom = distributed_big_ba_step(sh, mesh, alpha)
+            return sh._replace(cam_states=nc, lm_states=nl), denom, dxn
+
+        sh, applied, _, _ = lm_loop(
+            self._prepare(), step, lambda sh: float(distributed_big_ba_step(sh, mesh, 0.0)[3]),
+            self.tau * 1e3, max_iterations, min_dx_norm, verbose=self.verbose and mesh.rank == 0
+            and "DistBigBA: {verdict} chi2={chi2:.2f} alpha={alpha:.2e}")
         self.shards = sh
-        self.landmarks = self.mesh.all_gather(sh.lm_states)[: sh.n_l]
+        self.landmarks = mesh.all_gather(sh.lm_states)[: sh.n_l]
         if self.system is not None:
-            cam_ids, lm_ids = ba_system_arrays(self.system)[:2]
-            cams_np, lms_np = sh.cam_states.cpu().numpy(), self.landmarks.cpu().numpy()
-            for i, v in enumerate(cam_ids):
-                self.system.set_vertex_state(v, cams_np[i])
-            for i, v in enumerate(lm_ids):
-                self.system.set_vertex_state(v, lms_np[i])
+            set_ba_states(self.system, *ba_system_arrays(self.system)[:2], sh.cam_states,
+                          self.landmarks)
         return applied
 
     def chi2(self) -> float:
@@ -411,13 +370,12 @@ def distributed_big_ba_marginals(shards: BigBAShards, mesh: Mesh, alpha=0.0,
     p = shards.plan
     n_c = p.n_c
     N = 6 * n_c
-    _, B, BD, Dinv, _, _, Hcc = _local_terms(shards, alpha)
     SC = torch.empty((N, N), dtype=F64, device=mesh.device)
-    _sc_part(shards, B, BD, Hcc, SC)
+    _, B, _, Dinv, _, _ = _rank_system(shards, alpha, SC)
     mesh.all_reduce(SC)
     with span("dist.sc_factor"):
         _damp_cameras(SC, alpha, shards.anchor_cam)
-        Scc = torch.cholesky_inverse(_chol_lower(SC))
+        Scc = torch.cholesky_inverse(sc_cholesky(SC))
         Scc_b = Scc.view(n_c, 6, n_c, 6).permute(0, 2, 1, 3).contiguous()
         del Scc, SC
         ids = torch.arange(n_c, device=mesh.device)
@@ -431,17 +389,11 @@ def distributed_big_ba_marginals(shards: BigBAShards, mesh: Mesh, alpha=0.0,
         Bp = torch.cat([B, B.new_zeros((1, 6, 3))], 0)
         camp = torch.cat([p.obs_cam, p.obs_cam.new_zeros(1)])
         M = torch.zeros_like(Dinv)
-        for seg, st, sz, cap in _pair_buckets(qs.cpu().numpy(), qend.cpu().numpy()):
-            iota = torch.arange(cap, device=qe.device)
-            rows_per_chunk = max(1, max_chunk // cap)
-            for r0 in range(0, len(seg), rows_per_chunk):
-                s = torch.as_tensor(st[r0:r0 + rows_per_chunk], device=qe.device)
-                z = torch.as_tensor(sz[r0:r0 + rows_per_chunk], device=qe.device)
-                ix = torch.where(iota[None, :] < z[:, None], s[:, None] + iota[None, :], dummy)
-                pe, pf = qe[ix], qf[ix]  # (rows, cap)
-                G = Scc_b[camp[pe], camp[pf]]  # (rows, cap, 6, 6)
-                prod = torch.einsum("rcia,rcij,rcjb->rcab", Bp[pe], G, Bp[pf])
-                M[torch.as_tensor(seg[r0:r0 + rows_per_chunk], device=qe.device)] = prod.sum(1)
+        buckets = segment_buckets(qs.cpu().numpy(), qend.cpu().numpy(), qe.device)
+        for seg, ix in padded_chunks(buckets, dummy, max_chunk):
+            pe, pf = qe[ix], qf[ix]  # (rows, cap)
+            G = Scc_b[camp[pe], camp[pf]]  # (rows, cap, 6, 6)
+            M[seg] = torch.einsum("rcia,rcij,rcjb->rcab", Bp[pe], G, Bp[pf]).sum(1)
         lm_cov = Dinv + Dinv @ M @ Dinv
         lm_cov = torch.where(shards.lm_valid[:, None, None], lm_cov, 0.0)
     return cam_cov, lm_cov

@@ -10,8 +10,9 @@ The reference's baseline damping policy, exactly as in the JAX package:
     with alpha *= max(1/3, 1 - (2 rho - 1)^3), nu = 2; else alpha *= nu,
     nu *= 2 and roll back (Aftermath, :205-230);
   * damping is additive on the lambda diagonal (ApplyDamping, :235-243).
-The loop runs on the host and reads dx_norm, the gain-ratio denominator and
-the candidate's chi2 back each iteration, as the JAX package does.
+``lm_loop``, this policy for every LM solver of the port, runs on the host
+and reads dx_norm, the gain-ratio denominator and the candidate's chi2 back
+each iteration, as the JAX package does.
 ``optimize`` snapshots the host graph, runs ``optimize_graph`` on the
 snapshot and writes the result back; a caller that re-optimizes holds the
 device graph itself and calls ``optimize_graph`` (spans ``lm.solve`` >
@@ -28,6 +29,7 @@ instead (``linear/schur_sparse.py``, as ``engine="schur_sparse"``);
 
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
 
@@ -68,6 +70,46 @@ def warn_not_positive_definite() -> None:
     # def, aborting", NonlinearSolver_Lambda.h:658-660)
     print("warning: system is not positive definite / numerical failure in the linear "
           "solve, aborting iterations", file=sys.stderr)
+
+
+def lm_loop(state, step, chi2, alpha: float, max_iterations: int, min_dx_norm: float,
+            spans=None, verbose: str = None):
+    """The baseline policy above over an opaque ``state``, from damping
+    ``alpha``: ``step(state, alpha)`` gives (candidate, gain denominator,
+    |dx|), ``chi2(state)`` a float.  ``spans`` names the (iteration, accept,
+    reject) spans to open, or is None; ``verbose``, a format of ``it`` (from
+    1), ``verdict``, ``chi2`` and ``alpha``, is printed after each gain
+    test.  Returns (the last accepted state, the accepted steps, the steps
+    taken, the one that stopped the loop included, and why it stopped:
+    "max_iterations", "small_step" or "not_finite")."""
+    opened = span if spans else (lambda _: contextlib.nullcontext())
+    it_span, accept_span, reject_span = spans or (None,) * 3
+    nu = 2.0
+    last_error = chi2(state)
+    applied = 0
+    for it in range(1, max_iterations + 1):
+        with opened(it_span):
+            candidate, denom, dx_norm = step(state, alpha)
+            dx_norm = float(dx_norm)
+            if not math.isfinite(dx_norm):  # a failed factorization
+                return (state, applied, it, "not_finite")
+            if dx_norm <= min_dx_norm:
+                return (state, applied, it, "small_step")
+            f_error = chi2(candidate)
+            rho = (last_error - f_error) / max(float(denom), 1e-300)
+            with opened(accept_span if rho > 0 else reject_span):
+                if rho > 0:
+                    alpha *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
+                    nu = 2.0
+                    state, last_error = candidate, f_error
+                    applied += 1
+                else:
+                    alpha *= nu
+                    nu *= 2.0
+                if verbose:
+                    print(verbose.format(it=it, verdict="accepted" if rho > 0 else "rejected",
+                                         chi2=f_error, alpha=alpha))
+    return (state, applied, max_iterations, "max_iterations")
 
 
 class LevenbergMarquardtSolver:
@@ -177,57 +219,37 @@ class LevenbergMarquardtSolver:
         if engine == "big_ba":
             raise ValueError("the big_ba engine runs its own loop (BigBASolver.optimize)")
         alpha = self.tau * float(assembly.max_edge_hessian_diag(graph))
-        nu = 2.0
-        with span("lm.chi2"):
-            last_error = float(assembly.graph_chi2(graph))
-        applied = 0
-        it = 0
-        while it < max_iterations:
-            it += 1
-            self.n_iterations += 1
-            with span("lm.iteration"):
-                if engine in ("v3", "schur_sparse"):
-                    eng = self._v3_solver() if engine == "v3" else self._ss_solver()
-                    with self.timer.phase("solve"):
-                        new_states, denom, dx_norm, _ = eng.damped_step(graph, alpha)
-                        dx_norm = float(dx_norm)
-                else:
-                    with self.timer.phase("assemble"):
-                        H, g, _ = assembly.assemble_dense(graph)
-                    with self.timer.phase("solve"):
-                        if self.use_schur:
-                            from slampp_tpu_torch.linear.schur import schur_solve_dense_damped
 
-                            new_states, _, denom, dx_norm = schur_solve_dense_damped(
-                                graph, H, g, alpha, self._plan())
-                        else:
-                            new_states, _, denom, dx_norm = _damped_step(graph, H, g, alpha)
-                        dx_norm = float(dx_norm)
-                if not math.isfinite(dx_norm):
-                    warn_not_positive_definite()
-                    break
-                if dx_norm <= min_dx_norm:
-                    break
-                candidate = graph.replace_states(new_states)
-                with span("lm.chi2"):
-                    f_error = float(assembly.graph_chi2(candidate))
-                rho = (last_error - f_error) / max(float(denom), 1e-300)
-                if rho > 0:
-                    with span("lm.accept"):
-                        alpha *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
-                        nu = 2.0
-                        last_error = f_error
-                        graph = candidate
-                        applied += 1
-                        if self.verbose:
-                            print(f"LM iter {it}: accepted chi2={f_error:.4f} alpha={alpha:.3e}")
+        def step(graph, alpha):
+            if engine in ("v3", "schur_sparse"):
+                eng = self._v3_solver() if engine == "v3" else self._ss_solver()
+            else:
+                with self.timer.phase("assemble"):
+                    H, g, _ = assembly.assemble_dense(graph)
+            with self.timer.phase("solve"):
+                if engine in ("v3", "schur_sparse"):
+                    new_states, denom, dx_norm, _ = eng.damped_step(graph, alpha)
+                elif self.use_schur:
+                    from slampp_tpu_torch.linear.schur import schur_solve_dense_damped
+
+                    new_states, _, denom, dx_norm = schur_solve_dense_damped(
+                        graph, H, g, alpha, self._plan())
                 else:
-                    with span("lm.reject"):
-                        alpha *= nu
-                        nu *= 2.0
-                        if self.verbose:
-                            print(f"LM iter {it}: rejected chi2={f_error:.4f} alpha={alpha:.3e}")
-        return graph, applied, it
+                    new_states, _, denom, dx_norm = _damped_step(graph, H, g, alpha)
+                return graph.replace_states(new_states), denom, float(dx_norm)
+
+        def chi2(graph):
+            with span("lm.chi2"):
+                return float(assembly.graph_chi2(graph))
+
+        graph, applied, iterations, stop = lm_loop(
+            graph, step, chi2, alpha, max_iterations, min_dx_norm,
+            ("lm.iteration", "lm.accept", "lm.reject"),
+            self.verbose and "LM iter {it}: {verdict} chi2={chi2:.4f} alpha={alpha:.3e}")
+        self.n_iterations += iterations
+        if stop == "not_finite":
+            warn_not_positive_definite()
+        return graph, applied, iterations
 
     def chi2(self) -> float:
         """Denormalized chi-squared at the current linearization point."""

@@ -410,10 +410,9 @@ def port_sc_condition(n_cams=871, n_points=30_000, mean_track=10, alpha=1e-2):
         try:
             mesh = make_mesh("cpu")
             sh = pdb.build_big_ba_shards_arrays(*venice_scene(n_cams, n_points, mean_track), mesh)
-            _, B, BD, _, _, _, Hcc = pdb._local_terms(sh, alpha)
             N = 6 * sh.plan.n_c
             SC = torch.empty((N, N), dtype=torch.float64)
-            pdb._sc_part(sh, B, BD, Hcc, SC)
+            pdb._rank_system(sh, alpha, SC)
             pdb._damp_cameras(SC, alpha, sh.anchor_cam)
             ev = torch.linalg.eigvalsh(0.5 * (SC + SC.T))
         finally:

@@ -6,8 +6,9 @@ chi2 and the gain denominator within 1e-9), on test_distributed_ba.py's
 scene and on one whose gauge anchor is a landmark of rank 1;
 ``DistributedBigBASolver.optimize`` at 2 ranks (the same accepted steps,
 chi2 within 1e-9); ``distributed_big_ba_marginals`` at 2 ranks (1e-9 of
-the largest entry); the dense ``distributed_ba_lm_step`` at 2 ranks against
-the dense oracle of test_distributed_ba.py (``assemble_dense`` +
+the largest entry); that the sharded step takes ``ops/ba_kernels``' op
+(one rank in this process); the dense ``distributed_ba_lm_step`` at 2
+ranks against the dense oracle of test_distributed_ba.py (``assemble_dense`` +
 ``schur_solve`` at the same damping), and, marked slow, against the JAX
 package's own dense distributed step (about a minute of eager
 ``shard_map``).
@@ -102,6 +103,36 @@ def test_distributed_big_ba_marginals_match_jax():
     for got, want in ((res["cam_cov"], cam_cov), (res["lm_cov"], lm_cov)):
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
+
+
+def test_sharded_step_takes_the_ba_kernel_op(monkeypatch, tmp_path):
+    """``distributed_big_ba_step`` and ``distributed_big_ba_marginals`` get
+    their observation terms from ``ops/ba_kernels.p2c_linearize`` (the
+    kernel on the card), here in a one-rank gloo group of this process."""
+    import torch.distributed as dist
+
+    from slampp_tpu_torch.ops import ba_kernels
+    from slampp_tpu_torch.parallel import distributed_ba as pdb
+    from slampp_tpu_torch.parallel.distributed import make_mesh
+
+    calls = []
+    linearize = ba_kernels.p2c_linearize
+
+    def counted(*args):
+        calls.append(len(args[2]))
+        return linearize(*args)
+
+    monkeypatch.setattr(ba_kernels, "p2c_linearize", counted)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh("cpu")
+        sh = pdb.build_big_ba_shards_arrays(*apps_dist.venice_scene(8, 150, 4), mesh)
+        pdb.distributed_big_ba_step(sh, mesh, ALPHA)
+        pdb.distributed_big_ba_marginals(sh, mesh, ALPHA)
+    finally:
+        dist.destroy_process_group()
+    assert calls == [sh.plan.n_obs] * 2
 
 
 DENSE_SCENE = ba_scene_text(n_cams=6, n_points=64, obs_per_point=4, seed=2)

@@ -1,5 +1,6 @@
 """The port's profiler spans (``utils/spans.py``): the tree a v3 solve and a
-BA LM solve open under ``torch.profiler``, and the gate that keeps every
+BA LM solve open under ``torch.profiler``, the shared LM loop
+(``solvers/lm.lm_loop``) on a scripted step, and the gate that keeps every
 span out of ``record_function`` while no profiler runs."""
 
 import pytest
@@ -11,6 +12,7 @@ from slampp_tpu_torch.apps.sphere import sphere_system
 from slampp_tpu_torch.io.datasets import make_venice_ba_arrays
 from slampp_tpu_torch.linear import ba_schur
 from slampp_tpu_torch.linear.partitioned import PartitionedSolver
+from slampp_tpu_torch.solvers.lm import lm_loop
 from slampp_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
@@ -110,6 +112,46 @@ def test_a_rejected_step_opens_lm_reject():
     passes = _tree(prof, "ba.")[0][1][1:]
     assert accepted == 0
     assert [_names(inner)[-1] for _, inner in passes] == ["ba.lm_reject"] * 2
+
+
+# (chi2 of the candidate, gain denominator, |dx|) of each scripted step from
+# chi2 100: accept at rho 0.75 (alpha *= 1 - 0.5^3), two rejects (nu 2, then
+# 4), accept at rho 0.5 (alpha kept, nu back to 2), accept at rho 1.5 (the
+# 1/3 floor), reject (nu 2), then a step that is not finite
+SCRIPT = [(70.0, 40.0, 1.0), (80.0, 10.0, 1.0), (75.0, 10.0, 1.0), (60.0, 20.0, 1.0),
+          (30.0, 20.0, 1.0), (40.0, 20.0, 1.0), (0.0, 1.0, float("nan"))]
+
+
+@pytest.mark.parametrize("names", [("ba.iteration", "ba.lm_accept", "ba.lm_reject"),
+                                   ("lm.iteration", "lm.accept", "lm.reject"), None],
+                         ids=["ba", "lm", "none"])
+def test_lm_loop_on_a_scripted_step(names, capsys):
+    alphas = []
+
+    def step(state, alpha):
+        alphas.append(alpha)
+        chi2, denom, dxn = SCRIPT[len(alphas) - 1]
+        return (len(alphas), chi2), denom, dxn
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = lm_loop((0, 100.0), step, lambda s: s[1], 1.0, 10, 0.0, names,
+                      "{it} {verdict} {chi2} {alpha!r}")
+    assert alphas == pytest.approx([1.0, 0.875, 1.75, 7.0, 7.0, 7.0 / 3.0, 14.0 / 3.0],
+                                   rel=1e-15)
+    assert out == ((5, 30.0), 3, 7, "not_finite")
+    lines = [ln.split() for ln in capsys.readouterr().out.splitlines()]
+    assert [ln[:3] for ln in lines] == [
+        ["1", "accepted", "70.0"], ["2", "rejected", "80.0"], ["3", "rejected", "75.0"],
+        ["4", "accepted", "60.0"], ["5", "accepted", "30.0"], ["6", "rejected", "40.0"]]
+    assert [float(ln[3]) for ln in lines] == alphas[1:]
+    tree = _tree(prof, ("ba.", "lm."))
+    if names is None:
+        assert tree == []
+        return
+    it, accept, reject = names
+    assert _names(tree) == [it] * 7
+    assert [_names(inner) for _, inner in tree] == [
+        [accept], [reject], [reject], [accept], [accept], [reject], []]
 
 
 def test_no_profiler_no_record_function(monkeypatch):
