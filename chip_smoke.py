@@ -39,7 +39,14 @@ the run with a non-zero exit code and no result line:
               (ops/sim3_kernels.py), both forms, at venice871_sim3's
               2,792,206 edges (the same scene in Sim(3)) in the landmark
               order, held and timed the same way against the generic path
-              the CPU keeps (sim3-kernels);
+              the CPU keeps (sim3-kernels); then the sparse Schur engine's
+              slot-sum kernel (ops/schur_kernels.py) on the engine's table
+              and terms of the benchmark's venice871_sim3 scene against
+              its plain version: each entry within the any-order bound
+              (n_s + 3) 2^-52 S of its slot's n_s terms (S the sum of
+              their absolute values; 3 for each pair's dot product), the
+              same bits over repeated calls, device ms beside the byte
+              bound and the plain version's ms (schur-kernels);
   4. main     manhattan3500, mixed precision, chain mode, target 64,
               refine 0, 5 fused GN iterations; chi2 within 5e-3 of the f64
               oracle 404.504, every kernel launched by that run;
@@ -167,8 +174,9 @@ the run with a non-zero exit code and no result line:
               kernels launched in both runs at shapes the kernel phase
               checked; in each run's LM loop of n iterations alone, the
               Sim(3) edge kernel's terms form launched 1 + n times (the
-              initial damping, each step) and its chi2 form n + 1 (the
-              start, each candidate);
+              initial damping, each step), its chi2 form n + 1 (the
+              start, each candidate) and the slot-sum kernel n times (a
+              damped step each);
   sim3-venice-ref  the same procedure at 871 cameras and 30,000 points
               (300,046 observations), which the JAX package takes: chi2
               within 5e-3 of its CPU run, the same accepted count;
@@ -499,6 +507,10 @@ FUSED = {
                "none: slampp_tpu/models/sim3.py _g_jacobians and "
                "slampp_tpu/core/assembly.py edge_chi2, XLA-fused",
                ("sim3-venice", "sim3-venice-ref"), "sim3_launches"),
+    "slot": ("slampp_tpu_torch/csrc/schur_kernels.cu",
+             "none: slampp_tpu/linear/schur_sparse.py pair corrections and slot sums, "
+             "an XLA einsum and segment sum",
+             ("sim3-venice", "sim3-venice-ref"), "slot_launches"),
 }
 
 
@@ -1030,6 +1042,75 @@ def _check_sim3_kernels(dev, summary) -> None:
         TYPE_REGISTRY["edge"][name] = et
 
 
+def _check_schur_kernel(dev, summary) -> None:
+    """The sparse Schur engine's slot-sum kernel against its plain version
+    at venice871_sim3's shape: the benchmark's scene
+    (``_venice871_arrays``) embedded in Sim(3) as the benchmark's route
+    embeds it, the engine's table and edge terms and BD = B Dinv at damping
+    1e-3; each entry within (n_s + dl) 2^-52 S (its slot's n_s terms, S the
+    sum of their absolute values, dl for each pair's dot product;
+    tests/test_torch_schur_kernels.py), the same bits over repeated calls;
+    timed beside the plain version and the byte bound (every head block, BD
+    and B row and table entry read once, every slot block written once);
+    adds the kernel to ``summary``."""
+    import torch
+
+    from slampp_tpu_torch.apps.sim3 import ba_system_from_arrays
+    from slampp_tpu_torch.linear.schur_sparse import SparseSchurSolver
+    from slampp_tpu_torch.models.sim3 import embed_ba_system_sim3
+    from slampp_tpu_torch.ops import schur_kernels as sk
+    from slampp_tpu_torch.ops.segments import grouped_segsum_first
+    from slampp_tpu_torch.ops.small_blocks import inverse_spd_small
+
+    t0 = time.perf_counter()
+    system = embed_ba_system_sim3(ba_system_from_arrays(*_venice871_arrays()))
+    ss = SparseSchurSolver(system, device=dev)
+    ss.symbolic()
+    t_setup = time.perf_counter() - t0
+    terms = ss._edge_terms(system.snapshot(dev))
+    p, B = ss.plan, terms[9]
+    D = grouped_segsum_first(terms[7], p.lm_grp) + 1e-3 * torch.eye(3, dtype=B.dtype, device=dev)
+    BD = torch.einsum("eij,ejk->eik", B, inverse_spd_small(D)[p.pl_lm])
+    ops, table = (terms[0], terms[1], terms[2], terms[5], BD, B), p.slots
+    del terms, D
+    t0 = time.perf_counter()
+    got = sk.slot_sums(*ops, table)
+    want = sk.slot_sums_plain(*ops, table)
+    z = [torch.zeros_like(t) for t in ops]
+    S = (sk.slot_sums_plain(*(t.abs() for t in ops[:4]), *z[4:], table)
+         - sk.slot_sums_plain(*z[:4], *(t.abs() for t in ops[4:]), table))
+    n_s = torch.zeros(table.out.shape[0], dtype=torch.float64, device=dev)
+    n_s[table.out.long()] = (torch.diff(table.hptr) + torch.diff(table.pptr)).double()
+    bound = (n_s[:, None, None] + B.shape[2]) * 2.0 ** -52 * S
+    excess = float(((got - want).abs() - bound).max())
+    rel = float((got - want).abs().max() / want.abs().max())
+    same_bits = all(torch.equal(sk.slot_sums(*ops, table), got) for _ in range(3))
+    del want, S, z, bound
+    torch.cuda.empty_cache()
+    n_pl, bs, dl = B.shape
+    n_hit, n_heads, n_pairs = table.out.shape[0], table.heads.shape[0], table.pair_e.shape[0]
+    nbytes = (8 * (n_heads * bs * bs + 2 * n_pl * bs * dl + n_hit * bs * bs)
+              + 4 * (3 * n_hit + 2 + n_heads + 2 * n_pairs))
+    info = {"kernel": "slot_sums", "shape": [n_hit, bs, dl], "dtype": "float64",
+            "n_slots": n_hit, "n_heads": n_heads, "n_pairs": n_pairs, "n_obs": n_pl,
+            "setup_s": t_setup, "max_excess_over_bound": excess, "rel_err": rel,
+            "same_bits": same_bits, "ms": _time_ms(lambda: sk.slot_sums(*ops, table))}
+    info["device_ms"], info["device_ms_source"] = _device_ms(lambda: sk.slot_sums(*ops, table))
+    rp = _reps(lambda: sk.slot_sums_plain(*ops, table))
+    info["plain_ms"] = _time_ms(lambda: sk.slot_sums_plain(*ops, table), rp, 1)
+    info["plain_device_ms"], info["plain_device_ms_source"] = _device_ms(
+        lambda: sk.slot_sums_plain(*ops, table), max(2, rp), warmup=1)
+    info.update(bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes")
+    info["bound_share"] = info["bound_ms"] / info["device_ms"]
+    summary["slot_sums"] = {"shapes": [{"library_device_ms": None, **{k: info[k] for k in (
+        "shape", "dtype", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+        "bound_by")}}]}
+    _line("schur-kernels", excess <= 0.0 and same_bits, time.perf_counter() - t0, **info)
+    CHECKED.add(("slot_sums", n_hit, bs, dl, "float64"))
+    del ss, system, ops, got
+    torch.cuda.empty_cache()
+
+
 def _trsm_graph(dev) -> None:
     """One separator-form TRSM (its workspace zeroed on the stream, then one
     launch) captured in a CUDA graph at sphere-f64's separator shape and
@@ -1452,9 +1533,11 @@ def _sim3_phases(dev) -> dict:
 
     def sim3_launched(run):
         # the LM loop of n iterations alone: the terms form for the initial
-        # damping and each step, the chi2 form for the start and each candidate
+        # damping and each step, the chi2 form for the start and each
+        # candidate, the slot sums once a damped step
         n = run["lm_iterations"]
-        return run["sim3_launches"] == {"sim3_g_terms": 1 + n, "sim3_g_chi2": n + 1}
+        return (run["sim3_launches"] == {"sim3_g_terms": 1 + n, "sim3_g_chi2": n + 1}
+                and run["slot_launches"] == {"slot_sums": n})
 
     per_iter = {}
     ref, tol = JAX_REF["sim3-venice"], TOL_SIM3["sim3-venice"]
@@ -1869,6 +1952,7 @@ def main(kernels_only: bool = False) -> int:
     _chol_graph(dev)
     _check_ba_kernels(dev, summary)
     _check_sim3_kernels(dev, summary)
+    _check_schur_kernel(dev, summary)
     if kernels_only:
         _kernel_bench(summary)
         print(json.dumps({"seconds": time.perf_counter() - T_START,
@@ -1941,8 +2025,9 @@ def _kernel_summary(summary, launches, iters, per_iter) -> list:
     """The closing kernel summary: each kernel's timed cases (``summary``)
     with its launches on the main path (``launches`` over ``iters``) and
     per iteration of each phase (``per_iter``); the BA reprojection
-    kernel's launches in the ba-venice phases, the Sim(3) edge kernel's in
-    the sim3-venice phases' LM loops (a solve each)."""
+    kernel's launches in the ba-venice phases, the Sim(3) edge kernel's and
+    the slot-sum kernel's in the sim3-venice phases' LM loops (a solve
+    each)."""
     out = []
     for k, v in summary.items():
         if k in REPLACES:

@@ -34,6 +34,7 @@ from slampp_tpu_torch.io.datasets import (make_ba_scene, make_rocv, make_spheron
 from slampp_tpu_torch.io.parser import build_system, detect_problem, g2o_file, parse_file
 from slampp_tpu_torch.models.sim3 import embed_ba_system_sim3
 from slampp_tpu_torch.ops import dense_kernels as dk
+from slampp_tpu_torch.ops import schur_kernels
 from slampp_tpu_torch.ops import sim3_kernels as sk
 from slampp_tpu_torch.solvers import GaussNewtonSolver, LevenbergMarquardtSolver
 from slampp_tpu_torch.utils.device import require_device
@@ -64,16 +65,19 @@ def ba_system_from_arrays(cams, lms, obs_cam, obs_pt, uv, info) -> GraphSystem:
 
 def _counted(fn):
     """(fn's result, the dense kernel launches it made, the distinct shapes
-    it launched, the Sim(3) edge kernel's launches it made by form),
-    leaving ``dk.launches``, ``dk.launch_shapes`` and ``sk.launches``
+    it launched, the Sim(3) edge kernel's launches it made by form, the
+    slot-sum kernel's launches), leaving ``dk.launches``,
+    ``dk.launch_shapes``, ``sk.launches`` and ``schur_kernels.launches``
     counting on."""
     before, shapes0, fused0 = dict(dk.launches), set(dk.launch_shapes), dict(sk.launches)
+    slot0 = dict(schur_kernels.launches)
     dk.launch_shapes.clear()
     out = fn()
     shapes = sorted(dk.launch_shapes, key=lambda s: (s[0], s[1], s[2], s[3] or 0))
     dk.launch_shapes.update(shapes0)
     return (out, {k: v - before[k] for k, v in dk.launches.items()}, shapes,
-            {k: v - fused0[k] for k, v in sk.launches.items()})
+            {k: v - fused0[k] for k, v in sk.launches.items()},
+            {k: v - slot0[k] for k, v in schur_kernels.launches.items()})
 
 
 def run_sim3_venice(n_cams: int = 871, n_points: int = 110_000, mean_track: int = 10,
@@ -85,11 +89,11 @@ def run_sim3_venice(n_cams: int = 871, n_points: int = 110_000, mean_track: int 
     sizes, the v3 geometry of the reduced camera system, the set-up split
     (build, embed, symbolic, first step), iterations/s of the loop, the
     dense kernel launches per iteration and their shapes, the Sim(3) edge
-    kernel's launches of the loop alone (``sim3_launches``, with
-    ``lm_iterations``), and on the card the peak memory.  ``f64_check``
-    then runs the same LM from the same start with the engine in float64
-    (``mixed_precision=False``, the symbolic shared) and adds its chi2,
-    accepted count and launches."""
+    kernel's and the slot-sum kernel's launches of the loop alone
+    (``sim3_launches``, ``slot_launches``, with ``lm_iterations``), and on
+    the card the peak memory.  ``f64_check`` then runs the same LM from the
+    same start with the engine in float64 (``mixed_precision=False``, the
+    symbolic shared) and adds its chi2, accepted count and launches."""
     device = torch.device(device)
     require_device(device, "run_sim3_venice")
     if device.type == "cuda":
@@ -116,7 +120,7 @@ def run_sim3_venice(n_cams: int = 871, n_points: int = 110_000, mean_track: int 
     float(ss.damped_step(system.snapshot(device), 1e-3)[2])
     t_first = time.perf_counter() - t0
     t0 = time.perf_counter()
-    applied, launches, shapes, fused = _counted(lambda: lm.optimize(iters, 0.0))
+    applied, launches, shapes, fused, slot = _counted(lambda: lm.optimize(iters, 0.0))
     _sync(device)
     t_opt = time.perf_counter() - t0
     p, v3p = ss.plan, ss.v3_plan
@@ -130,19 +134,22 @@ def run_sim3_venice(n_cams: int = 871, n_points: int = 110_000, mean_track: int 
            "plan": {"K": v3p.K, "M": v3p.M, "S": v3p.S, "SB": v3p.SB, "Ms": v3p.Ms,
                     "ch_ok": v3p.ch_ok},
            "launches_per_iter": {k: v / iters for k, v in launches.items()},
-           "kernel_shapes": shapes, "sim3_launches": fused, "lm_iterations": lm.n_iterations}
+           "kernel_shapes": shapes, "sim3_launches": fused, "slot_launches": slot,
+           "lm_iterations": lm.n_iterations}
     if f64_check:
         system.update_states({t: np.stack(v) for t, v in start.items()})
         ss.mixed_precision = False
         lm64 = LevenbergMarquardtSolver(system, use_schur=True, device=device)
         lm64._ss = ss
         t0 = time.perf_counter()
-        applied64, launches64, shapes64, fused64 = _counted(lambda: lm64.optimize(iters, 0.0))
+        applied64, launches64, shapes64, fused64, slot64 = _counted(
+            lambda: lm64.optimize(iters, 0.0))
         _sync(device)
         out["f64"] = {"chi2_final": lm64.chi2(), "lm_accepted": applied64,
                       "iters_per_sec": iters / (time.perf_counter() - t0),
                       "launches_per_iter": {k: v / iters for k, v in launches64.items()},
                       "kernel_shapes": shapes64, "sim3_launches": fused64,
+                      "slot_launches": slot64,
                       "lm_iterations": lm64.n_iterations}
         ss.mixed_precision = True
     if device.type == "cuda":
@@ -201,7 +208,7 @@ def _run_gn(text: str, device, max_iters: int, min_dx: float, use_schur: bool):
     engine = gn._resolve_solver()
     chi2_init = gn.chi2()
     t0 = time.perf_counter()
-    applied, launches, shapes, _ = _counted(lambda: gn.optimize(max_iters, min_dx))
+    applied, launches, shapes, _, _ = _counted(lambda: gn.optimize(max_iters, min_dx))
     _sync(device)
     return {"problem": problem, "device": str(device), "engine": engine,
             "n_vertices": system.n_vertices, "n_edges": system.n_edges,

@@ -16,20 +16,23 @@ back-substitute):
       flagged is_landmark, LinearSolver_Schur.h:725); the SC fill pattern =
       pose-pose edges and landmark-induced pose pairs; the v3 geometry over
       the pose blocks (``build_v3_geometry``); sorted contribution -> slot
-      routing tables.
+      routing tables, and from them a slot-major table of each fine slot's
+      contributions (``ops/schur_kernels.SlotTable``).
   device numeric: per-type batched Jacobians -> landmark blocks D_l, g_l by
-      sorted segment sums -> couplings B_e -> pair corrections -B_e D^-1
-      B_f^T -> one sorted segment sum into the fine slots -> the partitioned
-      solve -> landmark back-substitution.
+      sorted segment sums -> couplings B_e -> each fine slot's head blocks
+      and pair corrections -B_e D^-1 B_f^T summed into it
+      (``ops/schur_kernels.slot_sums``: on the card one kernel that forms
+      the pair corrections inside the sums) -> the partitioned solve ->
+      landmark back-substitution.
 
 The JAX package jit-compiles each step; the port runs it eagerly, with the
-plan's tables as tensors on the solver's device.  Its segment sums are the
-grouped padded-gather sums of ``ops/segments.py`` (each segment summed on
-its own, in a fixed order), where the JAX module took differences of
-prefix sums: those round at the magnitude of the running total, and at
-cityTrees300's GN step (condition ~1.3e10) they put dx 2.2e-4 from the
-dense f64 solution (the grouped sums 5.9e-7, the JAX package's own run
-4.7e-6).
+plan's tables as tensors on the solver's device.  Its segment sums (and
+the slot sums' plain version) are the grouped padded-gather sums of
+``ops/segments.py`` (each segment summed on its own, in a fixed order),
+where the JAX module took differences of prefix sums: those round at the
+magnitude of the running total, and at cityTrees300's GN step (condition
+~1.3e10) they put dx 2.2e-4 from the dense f64 solution (the grouped sums
+5.9e-7, the JAX package's own run 4.7e-6).
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from slampp_tpu_torch.core import assembly
 from slampp_tpu_torch.graph.system import GraphArrays, GraphSystem
 from slampp_tpu_torch.graph.types import get_edge_type, get_vertex_type
 from slampp_tpu_torch.linear import partitioned as v3
+from slampp_tpu_torch.ops import schur_kernels
+from slampp_tpu_torch.ops.schur_kernels import SlotTable, plan_slot_segments
 from slampp_tpu_torch.ops.segments import (GroupedSegments, grouped_segsum_first,
                                            plan_grouped_segments)
 from slampp_tpu_torch.ops.small_blocks import inverse_spd_small
@@ -61,21 +66,18 @@ class SparseSchurPlan(NamedTuple):
     anchor_dim: int
     anchor_info: float
     anchor_orig: int  # original pose-block id of a pose anchor (-1 otherwise)
-    # routing: the sorted segments of the Hessian block contributions (one
-    # per fine slot hit), of the rhs contributions (one per pose block) and
-    # of the landmark-sorted pose-landmark edges (one per landmark); each
-    # grouped plan's rows hold the contributions' own indices
-    src_grp: GroupedSegments  # rows index [head contributions | kept pairs]
+    # routing: the slot-major table of the Hessian block contributions (one
+    # slot per fine slot hit; its pairs are the kept pairs of pose-landmark
+    # edges sharing a landmark, those whose correction lands in the lower
+    # triangle), the sorted segments of the rhs contributions (one per pose
+    # block) and of the landmark-sorted pose-landmark edges (one per
+    # landmark); each grouped plan's rows hold the contributions' own indices
+    slots: SlotTable
     slot_inv: torch.Tensor  # (nnzb,) -> hit index, or n_hit (zero)
-    hij_tflag: torch.Tensor  # (n_pp,) bool: the pose-pose H_ij block lands transposed
     rsrc_grp: GroupedSegments
     lm_grp: GroupedSegments
     pl_lm: torch.Tensor  # (n_pl,) landmark of each (sorted) pose-landmark edge
     pl_pose: torch.Tensor  # (n_pl,) pose block of each (sorted) edge (0 for none)
-    # the kept pairs of pose-landmark edges sharing a landmark: those whose
-    # correction lands in the lower triangle
-    pair_e: torch.Tensor  # (n_kept,)
-    pair_f: torch.Tensor
     # solution scatter
     pose_dx_offsets: torch.Tensor  # (n_p, bs) global scalar offsets (dummy = state_dim)
     lm_dx_offsets: torch.Tensor  # (n_l, dl)
@@ -85,9 +87,17 @@ class SparseSchurPlan(NamedTuple):
     inv_map: torch.Tensor  # (n_p,) original pose block -> permuted
     lm_sort: torch.Tensor  # (n_pl,) the landmark sort of the pose-landmark edges
 
+    @property
+    def pair_e(self) -> torch.Tensor:  # (n_kept,) the kept pairs, in table order
+        return self.slots.pair_e
+
+    @property
+    def pair_f(self) -> torch.Tensor:
+        return self.slots.pair_f
+
     def to(self, device) -> "SparseSchurPlan":
         return self._replace(**{k: v.to(device) for k, v in self._asdict().items()
-                                if isinstance(v, (torch.Tensor, GroupedSegments))})
+                                if isinstance(v, (torch.Tensor, GroupedSegments, SlotTable))})
 
 
 def pl_terms(et, sl: int, ea, states: Dict[str, torch.Tensor]):
@@ -108,6 +118,44 @@ def pl_terms(et, sl: int, ea, states: Dict[str, torch.Tensor]):
             torch.einsum("eri,er->ei", WJ[sl], r),
             torch.einsum("eri,erj->eij", jacs[sp], WJ[sl]),
             chi2)
+
+
+def _slot_table(csrc, starts, ends, slot_i, slot_j, pair_off, tflag, pair_e, pair_f,
+                plain: bool) -> SlotTable:
+    """The slot-major table of ``ops/schur_kernels.py`` (host arrays) from
+    the routing: ``csrc`` the kept contributions sorted by slot (stably, so
+    each slot's in the routing order: head blocks, then pairs), hit slot k's
+    at [starts[k], ends[k]) and at permuted pose blocks (slot_i[k],
+    slot_j[k]); contribution c < ``pair_off`` the head block c of
+    [Hii | Hjj | Hij | Hpp] (transposed where ``tflag``), else the pair
+    (pair_e, pair_f)[c - pair_off].  The kernel walks the diagonal slots
+    first (they hold the most terms: every observation of the camera), then
+    the rest by (larger, smaller) pose index, so that the warps working at
+    once read one row camera's BD rows and share them in L2.  ``plain``
+    adds the plain version's grouped segments."""
+    if max(len(csrc), pair_off) > np.iinfo(np.int32).max:
+        raise ValueError(f"sparse Schur slot table: {len(csrc)} terms over {pair_off} head "
+                         f"blocks exceed int32")
+    n_hit = len(starts)
+    order = np.lexsort((slot_j, slot_i, slot_i != slot_j))
+    lens = (ends - starts)[order]
+    # each kept contribution's place in the table
+    rank = np.empty(n_hit, np.int64)
+    rank[order] = np.arange(n_hit)
+    hit = np.repeat(np.arange(n_hit), ends - starts)
+    first = np.cumsum(lens) - lens
+    c = np.empty_like(csrc)
+    c[first[rank[hit]] + np.arange(len(csrc)) - starts[hit]] = csrc
+    head = c < pair_off
+    nh = np.bincount(np.repeat(np.arange(n_hit), lens)[head], minlength=n_hit)
+    hc = c[head]
+    pairs = c[~head] - pair_off
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
+    hptr = np.concatenate([[0], np.cumsum(nh)])
+    pptr = np.concatenate([[0], np.cumsum(lens - nh)])
+    return SlotTable(out=i32(order), hptr=i32(hptr), heads=i32(np.where(tflag[hc] > 0, ~hc, hc)),
+                     pptr=i32(pptr), pair_e=i32(pair_e[pairs]), pair_f=i32(pair_f[pairs]),
+                     grp=plan_slot_segments(hptr, pptr) if plain else None)
 
 
 class SparseSchurSolver:
@@ -338,29 +386,25 @@ class SparseSchurSolver:
                        "rsrc_perm": rsrc_perm, "rsrc_starts": starts_r, "rsrc_ends": ends_r,
                        "lm_starts": lm_starts, "lm_ends": lm_ends, "src_tflag": tflag,
                        "pair_e": pair_e, "pair_f": pair_f}
-        # the device forms only the kept pair corrections (the JAX package
-        # forms all M2 and routes the rest to its dummy slot): the same terms
-        # in the same order in every segment, at about half the memory; its
-        # contributions are indexed [head | kept pairs]
-        pair_keep = np.flatnonzero(keep)
-        n_src, n_used = len(dest), pair_off + len(pair_keep)
-        cidx = np.concatenate([np.arange(pair_off, dtype=np.int64),
-                               pair_off + np.cumsum(keep, dtype=np.int64) - 1, [n_used]])
-        src_grp = plan_grouped_segments(starts, ends, n_src,
-                                        remap=cidx[np.append(src_perm, n_src)])._replace(m=n_used)
+        # the device sums the same terms in the same order into each slot,
+        # through a slot-major table of them (the JAX package forms all M2
+        # pair corrections and routes the rest to its dummy slot)
+        slot_key = np.full(nnzb, -1, np.int64)
+        slot_key[sval] = skey
+        slot_table = _slot_table(src_perm[:kept], starts, ends, slot_key[uniq] // n_p,
+                                 slot_key[uniq] % n_p, pair_off, tflag, pair_e, pair_f,
+                                 plain=self.device.type != "cuda")
         n_rsrc = len(rdest)
         t = torch.from_numpy
         self.plan = SparseSchurPlan(
             n_p=n_p, n_l=n_l, bs=bs, dl=dl, anchor_kind=anchor_kind, anchor_idx=anchor_idx,
             anchor_dim=anchor_dim, anchor_info=float(system.unary_information),
             anchor_orig=anchor_orig,
-            src_grp=src_grp, slot_inv=t(slot_inv.astype(np.int64)),
-            hij_tflag=t(tflag[2 * n_pp:3 * n_pp] > 0),
+            slots=slot_table, slot_inv=t(slot_inv.astype(np.int64)),
             rsrc_grp=plan_grouped_segments(starts_r, ends_r, n_rsrc,
                                            remap=np.append(rsrc_perm, n_rsrc)),
             lm_grp=plan_grouped_segments(lm_starts, lm_ends, n_pl),
             pl_lm=t(pl_lm_s), pl_pose=t(np.maximum(pl_pose_s, 0)),
-            pair_e=t(pair_e[pair_keep]), pair_f=t(pair_f[pair_keep]),
             pose_dx_offsets=t(pose_off), lm_dx_offsets=t(lm_off),
             pp_ei=t(pp_i), pp_ej=t(pp_j),
             inv_map=t(np.asarray(inv, np.int64)), lm_sort=t(lm_sort),
@@ -454,17 +498,13 @@ class SparseSchurSolver:
             Dinv = inverse_spd_small(D)
             BD = torch.einsum("eij,ejk->eik", B, Dinv[p.pl_lm])  # (n_pl, bs, dl)
 
-        with span("ss.pairs"):  # pair corrections -B_e Dinv_lm B_f^T
-            pair_c = -torch.einsum("tik,tjk->tij", BD[p.pair_e], B[p.pair_f])
+        with span("ss.pairs"):
+            # each hit fine slot's Hessian contributions summed into it: the
+            # head blocks (the pose-pose H_ij transposed where it lands so)
+            # and the pair corrections -B_e Dinv_lm B_f^T (ops/schur_kernels)
+            red = schur_kernels.slot_sums(Hii, Hjj, Hij, Hpp, BD, B, p.slots)  # (n_hit, bs, bs)
 
         with span("ss.assemble"):
-            # fine-slot assembly: concatenated in routing order, the pose-pose
-            # H_ij blocks transposed where flagged (no other term ever is)
-            Hij = torch.where(p.hij_tflag[:, None, None], Hij.transpose(1, 2), Hij)
-            contribs = torch.cat([Hii, Hjj, Hij, Hpp, pair_c], 0)
-            del pair_c
-            red = grouped_segsum_first(contribs, p.src_grp)  # (n_hit, bs, bs)
-            del contribs
             redp = torch.cat([red, red.new_zeros(1, bs, bs)], 0)
             vals = redp[p.slot_inv]  # (nnzb, bs, bs)
             d = torch.arange(bs, device=vals.device)

@@ -1,7 +1,8 @@
 """Build and load the hand-written native code (``csrc/``): the CUDA
-kernels (``dense_kernels.cu``, ``ba_kernels.cu`` and ``sim3_kernels.cu``,
-with ``nvcc``, into one library) and the host ordering (``slampp_native.cpp``, with the host
-C++ compiler; core/ordering.py).
+kernels (``dense_kernels.cu``, ``ba_kernels.cu``, ``sim3_kernels.cu`` and
+``schur_kernels.cu``, with ``nvcc``, into one library) and the host
+ordering (``slampp_native.cpp``, with the host C++ compiler;
+core/ordering.py).
 
 Each library is compiled at first use into a shared library with a plain
 C interface under ``slampp_tpu_torch/_build/`` (one file per hash of its
@@ -27,6 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "dense_kernels.cu"
 _BA_SOURCE = _PKG / "csrc" / "ba_kernels.cu"
 _SIM3_SOURCE = _PKG / "csrc" / "sim3_kernels.cu"
+_SCHUR_SOURCE = _PKG / "csrc" / "schur_kernels.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -81,8 +83,9 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(compile_shared((_SOURCE, _BA_SOURCE, _SIM3_SOURCE), _nvcc(),
-                                                 NVCC_FLAGS, build_info)))
+            lib = ctypes.CDLL(str(compile_shared(
+                (_SOURCE, _BA_SOURCE, _SIM3_SOURCE, _SCHUR_SOURCE), _nvcc(), NVCC_FLAGS,
+                build_info)))
             ptr, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"slampp_chol_{dt}")
@@ -112,6 +115,8 @@ def load() -> ctypes.CDLL:
             lib.slampp_sim3_g_terms_f64.restype = i32
             lib.slampp_sim3_g_chi2_f64.argtypes = [ptr] * 6 + [i64] + [ptr] * 3
             lib.slampp_sim3_g_chi2_f64.restype = i32
+            lib.slampp_slot_sums_f64.argtypes = [i32, i32] + [ptr] * 12 + [i32, i32, ptr, ptr]
+            lib.slampp_slot_sums_f64.restype = i32
             lib.slampp_error_string.argtypes = [i32]
             lib.slampp_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,11 +1,12 @@
-// Host stand-ins for the CUDA features that csrc/ba_kernels.cu and
-// csrc/sim3_kernels.cu use, so that tests/_cuda_host.py can build a
-// kernel's own source with the host C++ compiler and run it on the CPU: a
-// CTA's threads are std::threads meeting at one barrier (__syncthreads, and
-// each warp shuffle as a write-barrier-read-barrier through a CTA-wide
-// buffer), CTAs run one after another, __shared__ variables are function
-// statics.  It runs the kernel's indexing, staging, reductions and ticket
-// in order, not its timing.
+// Host stand-ins for the CUDA features that csrc/ba_kernels.cu,
+// csrc/sim3_kernels.cu and csrc/schur_kernels.cu use, so that
+// tests/_cuda_host.py can build a kernel's own source with the host C++
+// compiler and run it on the CPU: a CTA's threads are std::threads meeting
+// at one barrier (__syncthreads, and each warp shuffle as a
+// write-barrier-read-barrier through a CTA-wide buffer), CTAs run one after
+// another, __shared__ variables are function statics.  It runs the
+// kernel's indexing, staging, reductions and ticket in order, not its
+// timing.
 #pragma once
 #include <barrier>
 #include <cmath>

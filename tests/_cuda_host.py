@@ -26,7 +26,7 @@ def host_library(source: Path, n_launches: int) -> ctypes.CDLL:
         pytest.skip("no host C++ compiler")
     host_h = (Path(__file__).resolve().parent / "_cuda_host.h").read_text()
     src = source.read_text().replace("#include <cuda_runtime.h>", host_h)
-    src, n = re.subn(r"(\w+<\w+>)<<<(.*?)>>>\((.*?)\);",
+    src, n = re.subn(r"(\w+<[\w, ]+>)<<<(.*?)>>>\((.*?)\);",
                      r"host_launch(\2, [&]() { \1(\3); });", src, flags=re.S)
     assert n == n_launches
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -58,16 +58,20 @@ def test_plan_matches_jax(systems):
         np.testing.assert_array_equal(getattr(p, f).numpy(), np.asarray(getattr(jp, f)), f)
     # the device forms only the pair corrections the JAX package keeps (the
     # rest it routes to its dummy slot), and flags only the pose-pose H_ij
-    # blocks (no other contribution is transposed)
+    # blocks (no other contribution is transposed); its slot table holds
+    # them slot-major (each slot's order: tests/test_torch_schur_kernels.py)
     n_pp, n_pl = len(p.pp_ei), len(p.pl_lm)
     dest = np.full(len(ss.tables["src_tflag"]), -1, np.int64)
     kept = int(ss.tables["src_ends"][-1])
     dest[ss.tables["src_perm"][:kept]] = 1
     kept_pairs = np.flatnonzero(dest[3 * n_pp + n_pl:] == 1)
-    np.testing.assert_array_equal(p.pair_e.numpy(), ss.tables["pair_e"][kept_pairs])
-    np.testing.assert_array_equal(p.pair_f.numpy(), ss.tables["pair_f"][kept_pairs])
-    np.testing.assert_array_equal(p.hij_tflag.numpy(),
-                                  ss.tables["src_tflag"][2 * n_pp:3 * n_pp] > 0)
+    np.testing.assert_array_equal(
+        np.sort(p.pair_e.numpy().astype(np.int64) * n_pl + p.pair_f.numpy()),
+        np.sort(ss.tables["pair_e"][kept_pairs] * n_pl + ss.tables["pair_f"][kept_pairs]))
+    heads = p.slots.heads.numpy()
+    np.testing.assert_array_equal(np.sort(~heads[heads < 0]),
+                                  np.flatnonzero(ss.tables["src_tflag"] > 0))
+    assert (ss.tables["src_tflag"][2 * n_pp:3 * n_pp] > 0).any()
     assert not ss.tables["src_tflag"][:2 * n_pp].any()
     assert not ss.tables["src_tflag"][3 * n_pp:].any()
     np.testing.assert_array_equal(p.inv_map.numpy(), np.asarray(js._inv_map))
