@@ -193,7 +193,17 @@ the run with a non-zero exit code and no result line:
               package's lambda solver, the same applied;
   spcg        SPCGSolver on manhattan3500: chi2 within 1e-6 of the JAX
               package's, the same applied and CG iterations per step (each
-              step takes the 200-iteration cap in both).
+              step takes the 200-iteration cap in both);
+  sim3-invdist-venice  the benchmark cell venice871_sim3_invdist.lm's solve
+              at full size (seed 0; the scene of venice871_sim3 with
+              local inverse-distance landmarks: ternary LO edges on the
+              sparse Schur engine): its counts (2,264,792 LO edges,
+              13,909,180 kept pairs), the slot-sum kernel at (7, 1)
+              against its plain version, the device ms of each layer per
+              LM iteration, iterations/s, the peak device memory, and the
+              final states against the plain reference
+              (portbench/reference/sim3_invdist_lm.py) under the cell's
+              limits.
   (after spcg: the slam_plus_plus CLI, apps/main.py, run in-process in a
   temporary directory on g2o text written there, as a user runs it)
   cli-gn      -i manhattan3500.g2o --json -dm -dsm -ns -nb (GN, the native
@@ -253,6 +263,10 @@ last line {"ok": true, "device": {...}}.
 runs phases 1-3 alone (the CLI's -rmb) and writes kernel_bench.csv (kernel,
 shape, dtype, device ms, library ms, bound ms of every timed case) into the
 working directory.
+
+    python3 chip_smoke.py --sim3-invdist
+
+runs phases 1-2 and sim3-invdist-venice alone.
 """
 
 from __future__ import annotations
@@ -1611,6 +1625,113 @@ def _sim3_phases(dev) -> dict:
     return per_iter
 
 
+# the benchmark cell venice871_sim3_invdist.lm's seed-0 counts (the
+# configuration's "assumed" counts: LO edges, kept pairs of (landmark,
+# camera) rows, which equal venice871_sim3's observation pairs)
+INVDIST_COUNTS = {"n_ternary": 2_264_792, "n_pairs": 13_909_180}
+INVDIST_SPANS = ("ss.edge_terms", "ss.rows", "ss.landmarks", "ss.pairs", "ss.assemble",
+                 "v3.factor", "ss.backsub", "lm.chi2")
+
+
+def _sim3_invdist_phase(dev) -> None:
+    """sim3-invdist-venice: the cell venice871_sim3_invdist.lm's solve at
+    its full size (seed 0) through its benchmark route: the plan's counts
+    against INVDIST_COUNTS; the slot-sum kernel at (7, 1) against its plain
+    version on the engine's own terms (each entry within (n_s + dl) 2^-52 S,
+    as schur-kernels); one warm solve traced for the device ms of each layer
+    per LM iteration, three timed (one slot-sum launch a damped step); the
+    final states against the plain reference
+    (portbench/reference/sim3_invdist_lm.py) under the cell's limits; the
+    peak device memory."""
+    import torch
+
+    from portbench import harness, traces
+    from portbench.reference import sim3_invdist_lm as ref_mod
+    from portbench.routes.sim3_invdist_lm import Route
+    from slampp_tpu_torch.ops import schur_kernels as sk
+    from slampp_tpu_torch.ops.segments import grouped_segsum_first
+    from slampp_tpu_torch.ops.small_blocks import inverse_spd_small
+
+    cell, config = harness.cell_files("venice871_sim3_invdist.lm")
+    t0 = time.perf_counter()
+    route = Route(config, cell["solve"], 0, dev)
+    setup_s = time.perf_counter() - t0
+    ss = route.lm._ss_solver()
+    p = ss.plan
+    counts = {"n_ternary": p.n_ternary, "n_rows": p.n_rows, "n_pairs": p.n_pairs,
+              "n_heads": p.n_heads, "n_landmarks": p.n_l, "n_obs": route.lm.system.n_edges}
+
+    # the slot sums at (7, 1) on the engine's terms, kernel against plain
+    terms = ss._edge_terms(route.start)
+    B = grouped_segsum_first(terms[9], p.rows)
+    D = grouped_segsum_first(terms[7], p.lm_grp) + 1e-3
+    ops = (terms[0], terms[1], terms[2], terms[5],
+           torch.einsum("eij,ejk->eik", B, inverse_spd_small(D)[p.row_lm]), B)
+    del terms, D
+    got = sk.slot_sums(*ops, p.slots)
+    want = sk.slot_sums_plain(*ops, p.slots)
+    z = [torch.zeros_like(t) for t in ops]
+    S = (sk.slot_sums_plain(*(t.abs() for t in ops[:4]), *z[4:], p.slots)
+         - sk.slot_sums_plain(*z[:4], *(t.abs() for t in ops[4:]), p.slots))
+    n_s = torch.zeros(p.slots.out.shape[0], dtype=torch.float64, device=dev)
+    n_s[p.slots.out.long()] = (torch.diff(p.slots.hptr) + torch.diff(p.slots.pptr)).double()
+    excess = float(((got - want).abs() - (n_s[:, None, None] + 1) * 2.0 ** -52 * S).max())
+    slot = {"shape": list(got.shape), "max_excess_over_bound": excess,
+            "same_bits": all(torch.equal(sk.slot_sums(*ops, p.slots), got) for _ in range(2))}
+    slot["device_ms"], slot["device_ms_source"] = _device_ms(lambda: sk.slot_sums(*ops, p.slots))
+    del got, want, z, S, ops, B
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)  # the solves' peak, not the plain check's
+
+    # one warm solve, one traced, three timed
+    route.solve()
+    torch.cuda.synchronize(dev)
+    iters = []
+
+    def traced():
+        iters.append(route.solve()[1])
+        torch.cuda.synchronize(dev)
+
+    view = traces.capture(traced, dev)
+    layers = {name: 1e3 * sec / iters[0] for name in INVDIST_SPANS
+              if (sec := view.range_device_s(name)) is not None}
+    sk.reset_launches()
+    t1 = time.perf_counter()
+    n_it = 0
+    for _ in range(3):
+        raw, it = route.solve()
+        n_it += it
+    torch.cuda.synchronize(dev)
+    rate = n_it / (time.perf_counter() - t1)
+    launches = dict(sk.launches)  # the slot sums once a damped step
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = route.output(raw)
+    out = {k: v.clone() for k, v in out.items()}
+    inputs = route.inputs()
+    route.release()
+    del route, ss, p, raw
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    ref = ref_mod.run(inputs, cell["solve"], dev)
+    nums = ref_mod.compare(ref, out)
+    reference_s = time.perf_counter() - t2
+    within = {k: nums[k] <= lim for k, lim in cell["limits"].items()}
+    ok = (counts["n_ternary"] == INVDIST_COUNTS["n_ternary"]
+          and counts["n_pairs"] == INVDIST_COUNTS["n_pairs"]
+          and excess <= 0.0 and slot["same_bits"] and launches == {"slot_sums": n_it}
+          and all(within.values()))
+    _line("sim3-invdist-venice", ok, time.perf_counter() - t0, counts=counts, setup_s=setup_s,
+          slot_sums=slot, layer_device_ms=layers, idle_pct=view.idle_pct(),
+          lm_iters_per_s=rate, iterations=n_it, slot_launches=launches,
+          memory_peak_bytes=peak, checks=nums,
+          limits=cell["limits"], within=within, reference=ref_mod.summary(ref),
+          reference_s=reference_s)
+    if not ok:
+        raise Failure("sim3-invdist-venice")
+    del ref, out
+    torch.cuda.empty_cache()
+
+
 # the distributed phases.  dist-gn: chi2 at each step's input within 1e-6 of
 # JAX's distributed_gn_step on a 1-device CPU mesh and after the last step
 # within 1e-8; manhattan3500's H has condition number ~7.6e12 (the eigen
@@ -1919,7 +2040,7 @@ def _incremental_phase(phase, engine, kw, counters, dev):
     return per
 
 
-def main(kernels_only: bool = False) -> int:
+def main(kernels_only: bool = False, invdist_only: bool = False) -> int:
     if not (ROOT / SOURCE).exists():
         print("FAIL: chip_smoke.py must run from a checkout of the repository", flush=True)
         return 2
@@ -1945,6 +2066,10 @@ def main(kernels_only: bool = False) -> int:
     regs = [ln.strip() for ln in _cuda.build_info["log"].splitlines() if "registers" in ln]
     _line("build", True, time.perf_counter() - t0, nvcc_s=_cuda.build_info["seconds"],
           library=_cuda.build_info["path"], ptxas=regs)
+
+    if invdist_only:
+        _sim3_invdist_phase(dev)
+        return 0
 
     # 3. kernels against their plain versions
     summary = _check_kernels(dev)
@@ -1998,6 +2123,7 @@ def main(kernels_only: bool = False) -> int:
 
     # Sim(3) bundle adjustment at venice871 scale, ROCV, Spheron, A, SPCG
     per_iter.update(_sim3_phases(dev))
+    _sim3_invdist_phase(dev)
 
     # the slam_plus_plus CLI as a user runs it, the regression goldens, two
     # examples
@@ -2078,6 +2204,8 @@ if __name__ == "__main__":
     entry = main
     if sys.argv[1:] == ["--kernels"]:
         entry = lambda: main(kernels_only=True)  # noqa: E731
+    if sys.argv[1:] == ["--sim3-invdist"]:
+        entry = lambda: main(invdist_only=True)  # noqa: E731
     if sys.argv[1:] == ["--incremental"]:
         # the incremental solvers' host path is many small LAPACK calls,
         # which threaded OpenBLAS slows down: one thread, set before the

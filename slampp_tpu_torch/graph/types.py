@@ -27,8 +27,9 @@ Conventions as in the JAX package: ``error_fn`` is the residual
 The JAX package differentiated each ``error_fn`` through the retractions
 with ``jax.jacfwd`` (``slampp_tpu/core/assembly.py:32-48``).  Here every
 edge type brings its ``jacobian_fn``: the SE(2), SE(3), BA, ROCV and
-Spheron types and the Sim(3) G reprojection edges (the full-width Sim(3)
-path) have analytic ones; the other Sim(3) edges (LS, LO, the pose edges
+Spheron types, the Sim(3) G reprojection edges (the full-width Sim(3)
+path) and the inverse-distance LS and LO edges have analytic ones; the
+other Sim(3) edges (the XYZ and inverse-depth LS and LO, the pose edges
 and the angle-error variants) take :func:`autodiff_jacobian`, the same
 construction as the JAX package's on ``torch.func``.
 """

@@ -25,6 +25,17 @@ back-substitute):
       the pair corrections inside the sums) -> the partitioned solve ->
       landmark back-substitution.
 
+Edge kinds: unary (pose or landmark), binary pose-pose and pose-landmark,
+and ternary with one landmark and two poses (the local-landmark LO edges
+of models/sim3.py: landmark, owner camera, observing camera).  A ternary
+edge adds its two poses' blocks H_aa, H_bb, H_ab as a pose-pose edge does,
+its landmark block to D_l, and a coupling to the landmark for each pose.
+With ternary edges a landmark's couplings to one pose repeat (the owner's,
+on every LO edge of its landmark), so they are first summed per (landmark,
+pose) into one row (span ``ss.rows``); the pairs are those of the rows, as
+many as the same scene's binary edges would give.  Without ternary edges
+the rows are the pose-landmark edges themselves and no row is summed.
+
 The JAX package jit-compiles each step; the port runs it eagerly, with the
 plan's tables as tensors on the solver's device.  Its segment sums (and
 the slot sums' plain version) are the grouped padded-gather sums of
@@ -37,7 +48,7 @@ magnitude of the running total, and at cityTrees300's GN step (condition
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -78,6 +89,24 @@ class SparseSchurPlan(NamedTuple):
     lm_grp: GroupedSegments
     pl_lm: torch.Tensor  # (n_pl,) landmark of each (sorted) pose-landmark edge
     pl_pose: torch.Tensor  # (n_pl,) pose block of each (sorted) edge (0 for none)
+    # the coupling rows the pairs are formed of, sorted by landmark: the
+    # sorted pose-landmark edges themselves where no edge is ternary (the
+    # same tensors as pl_lm, pl_pose and lm_grp); with ternary edges one row
+    # per (landmark, pose), each the sum of that pose's couplings to the
+    # landmark (``rows``: coupling -> row segments), and the rows of each
+    # landmark (``row_lm_grp``)
+    row_lm: torch.Tensor  # (n_rows,)
+    row_pose: torch.Tensor  # (n_rows,) (0 for none)
+    row_lm_grp: GroupedSegments
+    rows: Optional[GroupedSegments]
+    # the pose of each head block of the pose-landmark terms, and the pose
+    # and landmark of each coupling: pl_pose, pl_pose and pl_lm where no edge
+    # is ternary; with ternary edges the binary pose-landmark edges' poses
+    # (in their type and pool order), and the couplings' (binary edges', then
+    # each ternary type's first pose slot's, then its second's)
+    hp_pose: torch.Tensor
+    cpl_pose: torch.Tensor
+    cpl_lm: torch.Tensor
     # solution scatter
     pose_dx_offsets: torch.Tensor  # (n_p, bs) global scalar offsets (dummy = state_dim)
     lm_dx_offsets: torch.Tensor  # (n_l, dl)
@@ -86,6 +115,11 @@ class SparseSchurPlan(NamedTuple):
     pp_ej: torch.Tensor
     inv_map: torch.Tensor  # (n_p,) original pose block -> permuted
     lm_sort: torch.Tensor  # (n_pl,) the landmark sort of the pose-landmark edges
+    # counts: ternary edges, coupling rows, kept pairs, head blocks
+    n_ternary: int
+    n_rows: int
+    n_pairs: int
+    n_heads: int
 
     @property
     def pair_e(self) -> torch.Tensor:  # (n_kept,) the kept pairs, in table order
@@ -206,10 +240,15 @@ class SparseSchurSolver:
         n_p, n_l = len(pose_block), len(lm_pos)
 
         # edge types by kind; pose-pose pairs and pose-landmark edge lists in
-        # the order the device concatenates them (type name, then pool order)
+        # the order the device concatenates them (type name, then pool order).
+        # A ternary edge (one landmark, two poses) adds its pose-pose blocks
+        # as a pose-pose edge does, its landmark block as a unary landmark
+        # edge, and one coupling per pose slot
         type_meta = []
         pp_i, pp_j = [], []
         pl_pose, pl_lm = [], []
+        hp_pose, cpl_pose, cpl_lm = [], [], []
+        n_ter = 0
         for tname in system.edge_type_names:
             et = get_edge_type(tname)
             if et.arity == 1:
@@ -224,9 +263,29 @@ class SparseSchurSolver:
                         pl_lm.append(lm_pos[v0])
                         pl_pose.append(-1)
                 continue
-            if et.arity != 2:
-                raise NotImplementedError(f"sparse Schur supports unary/binary edges, got {tname}")
             lm_slots = [get_vertex_type(v).is_landmark for v in et.vertex_types]
+            if et.arity == 3 and sum(lm_slots) == 1:
+                sl = int(lm_slots.index(True))
+                pa, pb = (k for k in range(3) if k != sl)
+                type_meta.append((tname, "ter", sl))
+                vids = np.asarray(system._edges[tname]["vids"], np.int64).reshape(-1, 3)
+                a = np.fromiter((pose_block[v] for v in vids[:, pa]), np.int64, len(vids))
+                b = np.fromiter((pose_block[v] for v in vids[:, pb]), np.int64, len(vids))
+                lm = np.fromiter((lm_pos[v] for v in vids[:, sl]), np.int64, len(vids))
+                if (a == b).any():
+                    raise ValueError(f"ternary edge type {tname}: an edge holds one pose in both "
+                                     f"pose slots")
+                pp_i.extend(a.tolist())
+                pp_j.extend(b.tolist())
+                pl_lm.extend(lm.tolist())
+                pl_pose.extend([-1] * len(vids))
+                cpl_pose.extend(a.tolist() + b.tolist())
+                cpl_lm.extend(lm.tolist() * 2)
+                n_ter += len(vids)
+                continue
+            if et.arity != 2:
+                raise NotImplementedError(f"sparse Schur supports unary and binary edges and "
+                                          f"ternary ones with one landmark, got {tname}")
             if not any(lm_slots):
                 type_meta.append((tname, "pp", None))
                 for vids in system._edges[tname]["vids"]:
@@ -240,9 +299,12 @@ class SparseSchurSolver:
                 for vids in system._edges[tname]["vids"]:
                     pl_pose.append(pose_block[vids[1 - sl]])
                     pl_lm.append(lm_pos[vids[sl]])
+                    hp_pose.append(pl_pose[-1])
+                    cpl_pose.append(pl_pose[-1])
+                    cpl_lm.append(pl_lm[-1])
         self._type_meta = type_meta
         lm_types = [(t, k) for t, k, _ in type_meta if k in ("pl", "u_lm")]
-        self._lm_rows_fused = (len(lm_types) == 1 and lm_types[0][1] == "pl"
+        self._lm_rows_fused = (not n_ter and len(lm_types) == 1 and lm_types[0][1] == "pl"
                                and get_edge_type(lm_types[0][0]).fused_terms is not None)
         n_pp, n_pl = len(pp_i), len(pl_pose)
         pp_i = np.asarray(pp_i, np.int64).reshape(-1)
@@ -257,21 +319,44 @@ class SparseSchurSolver:
         lm_starts = np.searchsorted(pl_lm_s, np.arange(n_l))
         lm_ends = np.searchsorted(pl_lm_s, np.arange(n_l) + 1)
 
-        # ordered pairs of edges sharing a landmark (both directions)
-        deg = (lm_ends - lm_starts).astype(np.int64)
+        # the coupling rows: the sorted edges themselves, or with ternary
+        # edges the couplings summed per (landmark, pose) (a pose's repeated
+        # couplings to one landmark would otherwise each pair with every
+        # other row of the landmark)
+        rows = None
+        if n_ter:
+            cpl_pose = np.asarray(cpl_pose, np.int64)
+            cpl_lm = np.asarray(cpl_lm, np.int64)
+            hp_pose = np.asarray(hp_pose, np.int64)
+            cord = np.lexsort((cpl_pose, cpl_lm))
+            ckey = cpl_lm[cord] * n_p + cpl_pose[cord]
+            _, r_starts = np.unique(ckey, return_index=True)
+            r_ends = np.append(r_starts[1:], len(ckey))
+            rows = plan_grouped_segments(r_starts, r_ends, len(ckey),
+                                         remap=np.append(cord, len(ckey)))
+            row_lm_s, row_pose_s = cpl_lm[cord][r_starts], cpl_pose[cord][r_starts]
+            row_starts = np.searchsorted(row_lm_s, np.arange(n_l))
+            row_ends = np.searchsorted(row_lm_s, np.arange(n_l) + 1)
+        else:
+            hp_pose = row_pose_s = pl_pose_s
+            row_lm_s, row_starts, row_ends = pl_lm_s, lm_starts, lm_ends
+        n_hp, n_rows = len(hp_pose), len(row_lm_s)
+
+        # ordered pairs of rows sharing a landmark (both directions)
+        deg = (row_ends - row_starts).astype(np.int64)
         d2 = deg * deg
         M2 = int(d2.sum())
         block_start = np.cumsum(d2) - d2
         t_idx = np.arange(M2, dtype=np.int64)
         within = t_idx - np.repeat(block_start, d2)
         deg_r = np.repeat(deg, d2)
-        base = np.repeat(lm_starts.astype(np.int64), d2)
+        base = np.repeat(row_starts.astype(np.int64), d2)
         pair_e = base + within // deg_r
         pair_f = base + within % deg_r
 
         # SC fill pattern in original pose-block ids, as sorted (hi, lo) keys
-        pe_pose = pl_pose_s[pair_e]
-        pf_pose = pl_pose_s[pair_f]
+        pe_pose = row_pose_s[pair_e]
+        pf_pose = row_pose_s[pair_f]
         valid_pair = (pe_pose >= 0) & (pf_pose >= 0)
         hi = np.maximum(pe_pose, pf_pose)
         lo = np.minimum(pe_pose, pf_pose)
@@ -308,17 +393,17 @@ class SparseSchurSolver:
         # row block comes first in the permuted order lands transposed (tflag)
         ip, jp = inv[pp_i], inv[pp_j]
         unary = pp_i == pp_j
-        dest = np.empty(3 * n_pp + n_pl + M2, np.int64)
-        tflag = np.zeros(3 * n_pp + n_pl + M2)
+        dest = np.empty(3 * n_pp + n_hp + M2, np.int64)
+        tflag = np.zeros(3 * n_pp + n_hp + M2)
         dest[:n_pp] = slots(ip, ip)
         dest[n_pp:2 * n_pp] = np.where(unary, nnzb + 1, slots(jp, jp))
         dest[2 * n_pp:3 * n_pp] = np.where(unary, nnzb + 1,
                                            slots(np.maximum(ip, jp), np.minimum(ip, jp)))
         tflag[2 * n_pp:3 * n_pp] = (~unary & (ip < jp)).astype(np.float64)
-        ipl = inv[np.maximum(pl_pose_s, 0)]
-        dest[3 * n_pp:3 * n_pp + n_pl] = np.where(pl_pose_s >= 0, slots(ipl, ipl), nnzb + 1)
+        ipl = inv[np.maximum(hp_pose, 0)]
+        dest[3 * n_pp:3 * n_pp + n_hp] = np.where(hp_pose >= 0, slots(ipl, ipl), nnzb + 1)
         # pair corrections: the ordered pairs that map to the lower triangle
-        pair_off = 3 * n_pp + n_pl
+        pair_off = 3 * n_pp + n_hp
         rk_e = np.where(pe_pose >= 0, inv[np.maximum(pe_pose, 0)], -1)
         rk_f = np.where(pf_pose >= 0, inv[np.maximum(pf_pose, 0)], -1)
         keep = valid_pair & (rk_e >= rk_f)
@@ -340,12 +425,12 @@ class SparseSchurSolver:
         else:
             slot_inv = np.full(nnzb, n_hit, np.int64)
 
-        # rhs routing: [pp g_i | pp g_j | pl g_p | pair-correction g per pl edge],
+        # rhs routing: [pp g_i | pp g_j | pl g_p | pair-correction g per row],
         # in the permuted fine layout of the v3 solve
         rdest = np.concatenate([
             pp_i, np.where(pp_i == pp_j, n_p + 1, pp_j),
-            np.where(pl_pose_s >= 0, pl_pose_s, n_p + 1),
-            np.where(pl_pose_s >= 0, pl_pose_s, n_p + 1),
+            np.where(hp_pose >= 0, hp_pose, n_p + 1),
+            np.where(row_pose_s >= 0, row_pose_s, n_p + 1),
         ])
         rdest = np.where(rdest < n_p, inv[np.minimum(rdest, n_p - 1)], n_p + 1)
         rsrc_perm = np.argsort(rdest, kind="stable")
@@ -396,6 +481,15 @@ class SparseSchurSolver:
                                  plain=self.device.type != "cuda")
         n_rsrc = len(rdest)
         t = torch.from_numpy
+        lm_grp = plan_grouped_segments(lm_starts, lm_ends, n_pl)
+        pl_lm_t, pl_pose_t = t(pl_lm_s), t(np.maximum(pl_pose_s, 0))
+        if rows is None:
+            row_lm, row_pose, row_lm_grp = pl_lm_t, pl_pose_t, lm_grp
+            hp_pose_t, cpl_pose_t, cpl_lm_t = pl_pose_t, pl_pose_t, pl_lm_t
+        else:
+            row_lm, row_pose = t(row_lm_s), t(row_pose_s)
+            row_lm_grp = plan_grouped_segments(row_starts, row_ends, n_rows)
+            hp_pose_t, cpl_pose_t, cpl_lm_t = t(hp_pose), t(cpl_pose), t(cpl_lm)
         self.plan = SparseSchurPlan(
             n_p=n_p, n_l=n_l, bs=bs, dl=dl, anchor_kind=anchor_kind, anchor_idx=anchor_idx,
             anchor_dim=anchor_dim, anchor_info=float(system.unary_information),
@@ -403,11 +497,14 @@ class SparseSchurSolver:
             slots=slot_table, slot_inv=t(slot_inv.astype(np.int64)),
             rsrc_grp=plan_grouped_segments(starts_r, ends_r, n_rsrc,
                                            remap=np.append(rsrc_perm, n_rsrc)),
-            lm_grp=plan_grouped_segments(lm_starts, lm_ends, n_pl),
-            pl_lm=t(pl_lm_s), pl_pose=t(np.maximum(pl_pose_s, 0)),
+            lm_grp=lm_grp, pl_lm=pl_lm_t, pl_pose=pl_pose_t,
+            row_lm=row_lm, row_pose=row_pose, row_lm_grp=row_lm_grp, rows=rows,
+            hp_pose=hp_pose_t, cpl_pose=cpl_pose_t, cpl_lm=cpl_lm_t,
             pose_dx_offsets=t(pose_off), lm_dx_offsets=t(lm_off),
             pp_ei=t(pp_i), pp_ej=t(pp_j),
             inv_map=t(np.asarray(inv, np.int64)), lm_sort=t(lm_sort),
+            n_ternary=n_ter, n_rows=n_rows, n_pairs=len(slot_table.pair_e),
+            n_heads=len(slot_table.heads),
         ).to(self.device)
         self._symbolic_key = (system.n_vertices, system.n_edges)
 
@@ -423,8 +520,14 @@ class SparseSchurSolver:
         takes its fused terms (``assembly.takes_fused``: ops/sim3_kernels.py
         on the card) takes them in place of :func:`pl_terms`; where it is the
         only type with landmark rows, they come in the landmark order
-        already."""
+        already.  A ternary edge's two poses give its pp_* terms, as a
+        pose-pose edge's do; where some edges are ternary, pl_Hpp and pl_gp
+        are the binary pose-landmark edges' alone (in their type and pool
+        order), pl_D and pl_gl those of every edge with a landmark, and pl_B
+        the couplings in the plan's coupling order (``cpl_pose``), which
+        ``ss.rows`` sums per (landmark, pose)."""
         p = self.plan
+        rows = p.rows is not None
         bs, dl = p.bs, p.dl
         dt, dev = torch.float64, graph.device
         Hii, Hjj, Hij, gi, gj = [], [], [], [], []
@@ -449,7 +552,18 @@ class SparseSchurSolver:
             Wr = torch.einsum("eij,ej->ei", W, r)
             chi2 = chi2 + torch.where(ea.valid, torch.einsum("ei,ei->e", r, Wr), 0.0).sum()
             WJ = [torch.einsum("eij,ejk->eik", W, J) for J in jacs]
-            if kind == "pp":
+            if kind == "ter":
+                a, b = (k for k in range(3) if k != sl)
+                Hii.append(torch.einsum("eri,erj->eij", jacs[a], WJ[a]))
+                Hjj.append(torch.einsum("eri,erj->eij", jacs[b], WJ[b]))
+                Hij.append(torch.einsum("eri,erj->eij", jacs[a], WJ[b]))
+                gi.append(torch.einsum("eri,er->ei", WJ[a], r))
+                gj.append(torch.einsum("eri,er->ei", WJ[b], r))
+                Dl.append(torch.einsum("eri,erj->eij", jacs[sl], WJ[sl]))
+                gl.append(torch.einsum("eri,er->ei", WJ[sl], r))
+                Bc.append(torch.einsum("eri,erj->eij", jacs[a], WJ[sl]))
+                Bc.append(torch.einsum("eri,erj->eij", jacs[b], WJ[sl]))
+            elif kind == "pp":
                 Hii.append(torch.einsum("eri,erj->eij", jacs[0], WJ[0]))
                 Hjj.append(torch.einsum("eri,erj->eij", jacs[1], WJ[1]))
                 Hij.append(torch.einsum("eri,erj->eij", jacs[0], WJ[1]))
@@ -464,15 +578,19 @@ class SparseSchurSolver:
             else:  # u_lm
                 Dl.append(torch.einsum("eri,erj->eij", jacs[0], WJ[0]))
                 gl.append(torch.einsum("eri,er->ei", WJ[0], r))
-                Hpp.append(r.new_zeros((r.shape[0], bs, bs)))
-                gp.append(r.new_zeros((r.shape[0], bs)))
-                Bc.append(r.new_zeros((r.shape[0], bs, dl)))
+                if not rows:
+                    Hpp.append(r.new_zeros((r.shape[0], bs, bs)))
+                    gp.append(r.new_zeros((r.shape[0], bs)))
+                    Bc.append(r.new_zeros((r.shape[0], bs, dl)))
 
         def cat(xs, shp):
             return torch.cat(xs, 0) if xs else torch.zeros((0,) + shp, dtype=dt, device=dev)
 
         s = p.lm_sort
-        if lm_sorted:
+        if rows:
+            lm_rows = (cat(Hpp, (bs, bs)), cat(gp, (bs,)), cat(Dl, (dl, dl))[s],
+                       cat(gl, (dl,))[s], cat(Bc, (bs, dl)))
+        elif lm_sorted:
             lm_rows = (Hpp[0], gp[0], Dl[0], gl[0], Bc[0])
         else:
             lm_rows = (cat(Hpp, (bs, bs))[s], cat(gp, (bs,))[s], cat(Dl, (dl, dl))[s],
@@ -487,6 +605,10 @@ class SparseSchurSolver:
         p, v3p = self.plan, self.v3_plan
         bs, dl, n_p = p.bs, p.dl, p.n_p
         (Hii, Hjj, Hij, gi, gj, Hpp, gp, Dle, gle, B, chi2) = terms
+        if p.rows is not None:
+            with span("ss.rows"):
+                # each (landmark, pose)'s couplings summed into its row
+                B = grouped_segsum_first(B, p.rows)  # (n_rows, bs, dl)
 
         with span("ss.landmarks"):
             D0 = grouped_segsum_first(Dle, p.lm_grp)  # (n_l, dl, dl) undamped
@@ -496,7 +618,7 @@ class SparseSchurSolver:
                 da = torch.arange(p.anchor_dim, device=D.device)
                 D[p.anchor_idx, da, da] += p.anchor_info
             Dinv = inverse_spd_small(D)
-            BD = torch.einsum("eij,ejk->eik", B, Dinv[p.pl_lm])  # (n_pl, bs, dl)
+            BD = torch.einsum("eij,ejk->eik", B, Dinv[p.row_lm])  # (n_rows, bs, dl)
 
         with span("ss.pairs"):
             # each hit fine slot's Hessian contributions summed into it: the
@@ -513,8 +635,8 @@ class SparseSchurSolver:
                 da = torch.arange(p.anchor_dim, device=vals.device)
                 vals[p.anchor_idx, da, da] += p.anchor_info
 
-            # rhs: g_p - BD g_l per pose-landmark edge, in the permuted fine layout
-            r2 = torch.einsum("eik,ek->ei", BD, g_l[p.pl_lm])
+            # rhs: g_p - BD g_l per row, in the permuted fine layout
+            r2 = torch.einsum("eik,ek->ei", BD, g_l[p.row_lm])
             rcontrib = torch.cat([gi, gj, gp, -r2], 0)
             rhs = grouped_segsum_first(rcontrib, p.rsrc_grp)  # (n_p, bs)
 
@@ -526,8 +648,8 @@ class SparseSchurSolver:
         with span("ss.backsub"):
             # landmark back-substitution: dx_l = Dinv (-g_l - B^T dx_pose)
             x_pose = x_perm[p.inv_map]  # (n_p, bs) original order
-            bt = torch.einsum("eik,ei->ek", B, x_pose[p.pl_pose])  # (n_pl, dl)
-            BT = grouped_segsum_first(bt, p.lm_grp)
+            bt = torch.einsum("eik,ei->ek", B, x_pose[p.row_pose])  # (n_rows, dl)
+            BT = grouped_segsum_first(bt, p.row_lm_grp)
             dx_l = torch.einsum("lij,lj->li", Dinv, -g_l - BT)
 
         total = graph.state_dim
@@ -551,11 +673,9 @@ class SparseSchurSolver:
         if gi.shape[0]:
             g.index_put_((po[p.pp_ei].reshape(-1),), gi.reshape(-1), accumulate=True)
             g.index_put_((po[p.pp_ej].reshape(-1),), gj.reshape(-1), accumulate=True)
-        if gp.shape[0]:
-            # unary landmark rows have gp == 0 and pl_pose clamped to 0
-            g.index_put_((po[p.pl_pose].reshape(-1),), gp.reshape(-1), accumulate=True)
-            g.index_put_((p.lm_dx_offsets[p.pl_lm].reshape(-1),), gle.reshape(-1),
-                         accumulate=True)
+        # unary landmark rows have gp == 0 and their head pose clamped to 0
+        g.index_put_((po[p.hp_pose].reshape(-1),), gp.reshape(-1), accumulate=True)
+        g.index_put_((p.lm_dx_offsets[p.pl_lm].reshape(-1),), gle.reshape(-1), accumulate=True)
         return g[: graph.state_dim]
 
     def _hessian_matvec(self, graph: GraphArrays, terms, v: torch.Tensor) -> torch.Tensor:
@@ -573,13 +693,18 @@ class SparseSchurSolver:
             oj = torch.einsum("eji,ej->ei", Hij, vi) + torch.einsum("eij,ej->ei", Hjj, vj)
             out.index_put_((po[p.pp_ei].reshape(-1),), oi.reshape(-1), accumulate=True)
             out.index_put_((po[p.pp_ej].reshape(-1),), oj.reshape(-1), accumulate=True)
-        if Hpp.shape[0]:
-            vpp, vll = vp[po[p.pl_pose]], vp[lo[p.pl_lm]]
-            # B == 0 on unary landmark rows masks the clamped pl_pose gather
-            op = torch.einsum("eij,ej->ei", Hpp, vpp) + torch.einsum("eij,ej->ei", B, vll)
-            ol = torch.einsum("eji,ej->ei", B, vpp) + torch.einsum("eij,ej->ei", Dle, vll)
-            out.index_put_((po[p.pl_pose].reshape(-1),), op.reshape(-1), accumulate=True)
-            out.index_put_((lo[p.pl_lm].reshape(-1),), ol.reshape(-1), accumulate=True)
+        # head blocks, landmark blocks and couplings apart: B == 0 on unary
+        # landmark rows masks their clamped head pose
+        vh, vl = vp[po[p.hp_pose]], vp[lo[p.pl_lm]]
+        vcp, vcl = vp[po[p.cpl_pose]], vp[lo[p.cpl_lm]]
+        out.index_put_((po[p.hp_pose].reshape(-1),),
+                       torch.einsum("eij,ej->ei", Hpp, vh).reshape(-1), accumulate=True)
+        out.index_put_((lo[p.pl_lm].reshape(-1),),
+                       torch.einsum("eij,ej->ei", Dle, vl).reshape(-1), accumulate=True)
+        out.index_put_((po[p.cpl_pose].reshape(-1),),
+                       torch.einsum("eij,ej->ei", B, vcl).reshape(-1), accumulate=True)
+        out.index_put_((lo[p.cpl_lm].reshape(-1),),
+                       torch.einsum("eji,ej->ei", B, vcp).reshape(-1), accumulate=True)
         if p.anchor_kind != "none" and p.anchor_orig >= 0:
             offs = (po if p.anchor_kind == "pose" else lo)[p.anchor_orig][: p.anchor_dim]
             out.index_put_((offs,), p.anchor_info * vp[offs], accumulate=True)

@@ -14,11 +14,13 @@ observing camera); the Sim(3) relative pose edge, the SE(3)-pose <->
 Sim(3)-camera edge, and the angle-error variant of each reprojection edge.
 
 Jacobians: the G edges on xyz and invdepth (the Sim(3) bundle adjustment
-path) are analytic.  With the post-multiplied retraction
-log(exp(x) exp(d)), a camera delta d = (u, w, sigma) moves the local point
-x = R^T (X - t) / s by -(u + w x x + sigma x), and a landmark delta (XYZ
-space for both parameterizations) by R^T d / s; the projection layer is
-differentiated elementwise.  The other edge types take
+path) and the inverse-distance LS and LO edges (the local-landmark path,
+``embed_ba_system_sim3_invdist``) are analytic.  With the post-multiplied
+retraction log(exp(x) exp(d)), a camera delta d = (u, w, sigma) moves the
+local point x = R^T (X - t) / s by -(u + w x x + sigma x), and a landmark
+delta (XYZ space for both parameterizations) by R^T d / s; an LO edge's
+owner delta moves the owner-local point by +(u + w x x_o + sigma x_o); the
+projection layer is differentiated elementwise.  The other edge types take
 ``graph.types.autodiff_jacobian`` (jacfwd through the retractions, as the
 JAX package did for every type).
 
@@ -200,12 +202,9 @@ def _p2c_invdist_sim3_lo_angle(xs, z):
 
 
 # ------------------------------------------------- analytic G-edge Jacobians
-def _g_jacobians(X, cam, z):
-    """(r, (J_point (E, 2, 3), J_cam (E, 2, 7))) of z - h(x), x the world
-    point X in the camera's local frame; J_point is per XYZ-space delta."""
-    tRs = sim3.sim3_exp(cam[..., 0:7])
-    x = sim3.inv_transform_tRs(tRs, X)
-    intr = cam[..., 7:12]
+def _distort_jacobian(x, intr):
+    """(E, 2, 3) d h / d x of the camera-frame projection h =
+    ``sim3._distort`` (pinhole and one radial term)."""
     fx, fy = intr[..., 0], intr[..., 1]
     k = intr[..., 4] / (0.5 * (fx * fy))
     iz = 1.0 / x[..., 2]
@@ -218,11 +217,27 @@ def _g_jacobians(X, cam, z):
     m11 = (d + 2.0 * k * a * a)[..., None]
     m12 = (2.0 * k * a * b)[..., None]
     m22 = (d + 2.0 * k * b * b)[..., None]
-    Jh = torch.stack([m11 * da + m12 * db, m12 * da + m22 * db], -2)  # dh / dx
+    return torch.stack([m11 * da + m12 * db, m12 * da + m22 * db], -2)
+
+
+def _post_delta(x):
+    """(E, 3, 7) [I, -[x]x, x]: how a post-multiplied delta (u, w, sigma)
+    of a camera moves a point x of its local frame, exp(d) x - x to first
+    order."""
+    eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape[:-1] + (3, 3))
+    return torch.cat([eye, -se3._skew(x), x[..., None]], -1)
+
+
+def _g_jacobians(X, cam, z):
+    """(r, (J_point (E, 2, 3), J_cam (E, 2, 7))) of z - h(x), x the world
+    point X in the camera's local frame; J_point is per XYZ-space delta."""
+    tRs = sim3.sim3_exp(cam[..., 0:7])
+    x = sim3.inv_transform_tRs(tRs, X)
+    intr = cam[..., 7:12]
+    Jh = _distort_jacobian(x, intr)  # dh / dx
     Rt = se3.axis_angle_to_rot(tRs[..., 3:6]).transpose(-1, -2)
     j_point = -(Jh @ Rt) / tRs[..., 6, None, None]
-    eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape[:-1] + (3, 3))
-    j_cam = Jh @ torch.cat([eye, -se3._skew(x), x[..., None]], -1)
+    j_cam = Jh @ _post_delta(x)
     return z - sim3._distort(x, intr), (j_point, j_cam)
 
 
@@ -235,6 +250,38 @@ def _p2c_invdepth_g_jacobians(xs, z):
     Jacobian is the xyz edge's."""
     v, cam = xs
     return _g_jacobians(sim3.invdepth_to_xyz(v), cam, z)
+
+
+# ------------------------------------- analytic inverse-distance Jacobians
+# The owner-local point is x_o = ray / q and the delta moves q alone, so
+# d x_o / d q = -x_o / q.  An LO edge carries x_o through the owner's
+# similarity and the observer's inverse, x = M x_o + c with
+# M = (s_o / s_c) R_c^T R_o; an owner delta moves x_o by [I, -[x_o]x, x_o] d,
+# an observer delta moves x by -[I, -[x]x, x] d (the G edge's camera).
+def _p2c_invdist_ls_jacobians(xs, z):
+    """(r, (J_q (E, 2, 1),)) of CEdgeP2C_InvDist_Sim3_LS."""
+    (v,) = xs
+    x = invdist_to_xyz(v)
+    intr = z[..., 2:7]
+    j_q = _distort_jacobian(x, intr) @ x[..., None] / v[..., 0:1, None]
+    return z[..., 0:2] - sim3._distort(x, intr), (j_q,)
+
+
+def _p2c_invdist_lo_jacobians(xs, z):
+    """(r, (J_q (E, 2, 1), J_owner (E, 2, 7), J_observer (E, 2, 7))) of
+    CEdgeP2C_InvDist_Sim3_LO."""
+    v, owner, obs = xs
+    x_o = invdist_to_xyz(v)
+    t_o, t_c = sim3.sim3_exp(owner[..., 0:7]), sim3.sim3_exp(obs[..., 0:7])
+    x = sim3.inv_transform_tRs(t_c, sim3.transform_tRs(t_o, x_o))
+    intr = obs[..., 7:12]
+    Jh = _distort_jacobian(x, intr)
+    Rc_t = se3.axis_angle_to_rot(t_c[..., 3:6]).transpose(-1, -2)
+    scale = (t_o[..., 6] / t_c[..., 6])[..., None, None]
+    M = (Rc_t @ se3.axis_angle_to_rot(t_o[..., 3:6])) * scale
+    JhM = Jh @ M
+    j_q = JhM @ x_o[..., None] / v[..., 0:1, None]
+    return z - sim3._distort(x, intr), (j_q, -(JhM @ _post_delta(x_o)), Jh @ _post_delta(x))
 
 
 def _xyz_g_operands(ea, states):
@@ -264,9 +311,9 @@ EDGE_P2C_XYZ_SIM3_LO = _edge("edge_p2c_xyz_sim3_lo", ("xyz",) + _LO, 2, 2, _p2c_
 EDGE_P2C_INVDEPTH_SIM3_LO = _edge("edge_p2c_invdepth_sim3_lo", ("invdepth",) + _LO, 2, 2,
                                   _p2c_invdepth_lo)
 EDGE_P2C_INVDIST_SIM3_LS = _edge("edge_p2c_invdist_sim3_ls", ("invdist",), 2, 7,
-                                 _p2c_invdist_ls)
+                                 _p2c_invdist_ls, _p2c_invdist_ls_jacobians)
 EDGE_P2C_INVDIST_SIM3_LO = _edge("edge_p2c_invdist_sim3_lo", ("invdist",) + _LO, 2, 2,
-                                 _p2c_invdist_lo)
+                                 _p2c_invdist_lo, _p2c_invdist_lo_jacobians)
 EDGE_POSE_SIM3 = _edge("edge_pose_sim3", ("sim3", "sim3"), 7, 7, _sim3_pose_pose)
 EDGE_POSE_CAM_SIM3 = _edge("edge_pose_cam_sim3", ("pose3d", "camsim3"), 7, 7, _pose_cam_sim3)
 
@@ -314,4 +361,77 @@ def embed_ba_system_sim3(ba_system):
     rec = ba_system._edges.get("edge_p2c", {"vids": []})
     for e, vids in enumerate(rec["vids"]):
         out.add_edge("edge_p2c_xyz_sim3_g", tuple(vids), rec["meas"][e], rec["sigma_inv"][e])
+    return out
+
+
+def embed_ba_system_sim3_invdist(ba_system):
+    """Re-express a mono-BA system (cam / xyz, ``edge_p2c``) in Sim(3) with
+    local inverse-distance landmarks, as SLAM++'s ACRA'15 parameterization
+    study does (src/ba_parameter_acra; CVertexInvDist,
+    CEdgeP2C_InvDist_Sim3_LS / _LO): the cameras as
+    :func:`embed_ba_system_sim3` embeds them; each point an ``invdist``
+    vertex owned by the camera of its first observation in the edges'
+    order, its ray that observation back-projected in the owner's frame
+    (``geometry/sim3.backproject_ray``), q one over the distance of the
+    point from the owner's centre.  An observation by the owner becomes
+    ``edge_p2c_invdist_sim3_ls`` (z = (u, v, the owner's intrinsics)), any
+    other ``edge_p2c_invdist_sim3_lo`` (landmark, owner, observer).  The
+    graph anchors its gauge on vertex 0, a camera: the first LO edge that
+    holds it is added first, the rest in their order.  Returns a new
+    GraphSystem over camsim3 / invdist."""
+    from slampp_tpu_torch.graph.system import GraphSystem
+
+    f64 = dict(dtype=torch.float64)
+    rec = ba_system._edges.get("edge_p2c", {"vids": [], "meas": [], "sigma_inv": []})
+    vids = np.asarray(rec["vids"], np.int64).reshape(-1, 2)
+    uv = np.asarray(rec["meas"], np.float64).reshape(-1, 2)
+    pt, cam = vids[:, 0], vids[:, 1]
+    kinds = {vid: ba_system.vertex_index[vid][0] for vid in ba_system._vorder}
+    if set(kinds.values()) - {"cam", "xyz"}:
+        raise ValueError(f"embed_ba_system_sim3_invdist: unsupported types "
+                         f"{sorted(set(kinds.values()) - {'cam', 'xyz'})}")
+    cam_ids = np.array([v for v in ba_system._vorder if kinds[v] == "cam"], np.int64)
+    pt_ids = np.array([v for v in ba_system._vorder if kinds[v] == "xyz"], np.int64)
+
+    # cameras: the world-to-camera pose with scale 1, inverted and logged
+    cst = torch.as_tensor(np.stack([ba_system.vertex_state(v) for v in cam_ids]), **f64)
+    c2w = sim3.inverse_tRs(torch.cat([cst[:, 0:6], cst.new_ones(len(cam_ids), 1)], 1))
+    cam_states = torch.cat([sim3.sim3_log(c2w), cst[:, 6:11]], 1).numpy()
+    cam_row = {int(v): i for i, v in enumerate(cam_ids)}
+
+    # points, in id order: owner, ray and inverse distance from each one's
+    # first observation
+    seen, first = np.unique(pt, return_index=True)
+    missing = np.setdiff1d(pt_ids, seen)
+    if len(missing):
+        raise ValueError(f"embed_ba_system_sim3_invdist: point {int(missing[0])} has no "
+                         f"observation to own it")
+    orow = np.fromiter((cam_row[int(c)] for c in cam[first]), np.int64, len(first))
+    X = torch.as_tensor(np.stack([ba_system.vertex_state(int(v)) for v in seen]), **f64)
+    ray = sim3.backproject_ray(torch.as_tensor(uv[first], **f64), cst[orow, 6:11])
+    q = 1.0 / torch.linalg.vector_norm(X - c2w[orow, 0:3], dim=-1)
+    lm_states = torch.cat([q[:, None], ray], 1).numpy()
+
+    out = GraphSystem()
+    for vid in ba_system._vorder:
+        const = ba_system._vconst.get(vid, False)
+        if kinds[vid] == "cam":
+            out.add_vertex("camsim3", vid, cam_states[cam_row[vid]], const=const)
+        else:
+            out.add_vertex("invdist", vid, lm_states[np.searchsorted(seen, vid)], const=const)
+
+    own = cam[first][np.searchsorted(seen, pt)]  # each observation's owner
+    lo = np.flatnonzero(own != cam)
+    holds0 = lo[(own[lo] == 0) | (cam[lo] == 0)]
+    if 0 not in cam_row or not len(holds0):
+        raise ValueError("embed_ba_system_sim3_invdist: the gauge needs camera vertex 0 in an "
+                         "observation of a point owned by another camera")
+    order = np.concatenate([holds0[:1], np.delete(np.arange(len(pt)), holds0[0])])
+    for e in order.tolist():
+        p, c, o = int(pt[e]), int(cam[e]), int(own[e])
+        if c == o:
+            z = np.concatenate([uv[e], cam_states[cam_row[o], 7:12]])
+            out.add_edge("edge_p2c_invdist_sim3_ls", (p,), z, rec["sigma_inv"][e])
+        else:
+            out.add_edge("edge_p2c_invdist_sim3_lo", (p, o, c), uv[e], rec["sigma_inv"][e])
     return out

@@ -113,7 +113,7 @@ def slot_sums(Hii, Hjj, Hij, Hpp, BD, B, table: SlotTable) -> torch.Tensor:
     f64, i32 = torch.float64, torch.int32
     _cuda.check_operands("slot_sums", [
         (B, (n_pl, bs, dl), f64, 8), (BD, (n_pl, bs, dl), f64, 8),
-        (Hpp, (n_pl, bs, bs), f64, 8), (Hii, (n_pp, bs, bs), f64, 8),
+        (Hpp, (Hpp.shape[0], bs, bs), f64, 8), (Hii, (n_pp, bs, bs), f64, 8),
         (Hjj, (n_pp, bs, bs), f64, 8), (Hij, (n_pp, bs, bs), f64, 8),
         (table.out, (n_slots,), i32, 4), (table.hptr, (n_slots + 1,), i32, 4),
         (table.heads, (table.heads.shape[0],), i32, 4), (table.pptr, (n_slots + 1,), i32, 4),
