@@ -198,10 +198,16 @@ the run with a non-zero exit code and no result line:
               at full size (seed 0; the scene of venice871_sim3 with
               local inverse-distance landmarks: ternary LO edges on the
               sparse Schur engine): its counts (2,264,792 LO edges,
-              13,909,180 kept pairs), the slot-sum kernel at (7, 1)
-              against its plain version, the device ms of each layer per
-              LM iteration, iterations/s, the peak device memory, and the
-              final states against the plain reference
+              13,909,180 kept pairs), the inverse-distance edge kernel
+              (ops/invdist_kernels.py), all four forms, on the cell's
+              start graph against the generic path the CPU keeps (each
+              output within 1e-12 of the generic one's largest entry,
+              chi2 the same bits over repeated calls, device ms beside
+              the byte bound and the generic path's ms: invdist-kernels),
+              the slot-sum kernel at (7, 1) against its plain version,
+              the device ms of each layer per LM iteration, iterations/s
+              (each form launched 1 + 5 times a solve), the peak device
+              memory, and the final states against the plain reference
               (portbench/reference/sim3_invdist_lm.py) under the cell's
               limits.
   (after spcg: the slam_plus_plus CLI, apps/main.py, run in-process in a
@@ -1056,6 +1062,80 @@ def _check_sim3_kernels(dev, summary) -> None:
         TYPE_REGISTRY["edge"][name] = et
 
 
+def _invdist_bound(name, m, n_c, n_l):
+    """Least time (ms) of one call of a form of the inverse-distance edge
+    kernel at m edges: every input and output byte once at the memory rate
+    (LO: the three indices, z, the information and valid per edge, the
+    cameras once; the terms form writes 177 doubles an edge. LS: the index,
+    the 7-wide z, the information and valid; the terms form writes 2
+    doubles; the landmarks once)."""
+    lo = name.startswith("invdist_lo")
+    nbytes = m * ((3 * 8 + 2 * 8) if lo else (8 + 7 * 8)) + m * (4 * 8 + 1) + n_l * 4 * 8
+    if lo:
+        nbytes += n_c * 12 * 8
+    if name.endswith("terms"):
+        nbytes += m * (177 if lo else 2) * 8
+    return 1e3 * nbytes / PEAK_BYTES
+
+
+def _check_invdist_kernels(graph, summary) -> None:
+    """The inverse-distance edge kernel's four forms against the generic
+    path on the card (``schur_sparse.generic_terms``, the LO edge's two
+    couplings concatenated as the engine did; ``assembly.edge_chi2`` on
+    ``error_fn``) on ``graph``'s LO and LS edges (the benchmark cell
+    venice871_sim3_invdist.lm's start graph); timed beside the generic path
+    and the byte bound; adds each form to ``summary``."""
+    import dataclasses
+
+    import torch
+
+    from slampp_tpu_torch.core import assembly
+    from slampp_tpu_torch.graph.system import EdgeArrays
+    from slampp_tpu_torch.graph.types import TYPE_REGISTRY, get_edge_type
+    from slampp_tpu_torch.linear.schur_sparse import generic_terms
+    from slampp_tpu_torch.models.sim3 import _invdist_lo_operands, _invdist_ls_operands
+    from slampp_tpu_torch.ops import invdist_kernels as ik
+
+    lo, ls = "edge_p2c_invdist_sim3_lo", "edge_p2c_invdist_sim3_ls"
+    types = {t: get_edge_type(t) for t in (lo, ls)}
+    n_c, n_l = graph.states["camsim3"].shape[0], graph.states["invdist"].shape[0]
+
+    def generic(ops):
+        states = {"invdist": ops[0]}
+        if len(ops) == 6:
+            states["camsim3"] = ops[1]
+        idx, meas, info, valid = ops[-4:]
+        return states, EdgeArrays(idx, torch.zeros_like(idx), meas, info, valid)
+
+    def lo_terms(*ops):
+        t = generic_terms(types[lo], "ter", 0, *generic(ops)[::-1])
+        return (*t[:7], torch.cat([t[7], t[8]]), t[9])
+
+    def ls_terms(*ops):
+        return generic_terms(types[ls], "u_lm", None, *generic(ops)[::-1])
+
+    def chi2(name):
+        return lambda *ops: (assembly.edge_chi2(name, generic(ops)[1], generic(ops)[0]),)
+
+    # the types without their fused forms, so that edge_chi2 takes error_fn
+    for t, et in types.items():
+        TYPE_REGISTRY["edge"][t] = dataclasses.replace(et, fused_terms=None, fused_chi2=None)
+    try:
+        for name, ops, forms in (
+                (lo, _invdist_lo_operands(graph.edges[lo], graph.states),
+                 (("invdist_lo_terms", ik.invdist_lo_terms, lo_terms),
+                  ("invdist_lo_chi2", lambda *a: (ik.invdist_lo_chi2(*a),), chi2(lo)))),
+                (ls, _invdist_ls_operands(graph.edges[ls], graph.states),
+                 (("invdist_ls_terms", ik.invdist_ls_terms, ls_terms),
+                  ("invdist_ls_chi2", lambda *a: (ik.invdist_ls_chi2(*a),), chi2(ls))))):
+            m = ops[-1].shape[0]
+            _check_fused_forms("invdist-kernels", forms, ops,
+                               lambda k, m=m: _invdist_bound(k, m, n_c, n_l), summary,
+                               n_cams=n_c, n_landmarks=n_l, edge_type=name)
+    finally:
+        TYPE_REGISTRY["edge"].update(types)
+
+
 def _check_schur_kernel(dev, summary) -> None:
     """The sparse Schur engine's slot-sum kernel against its plain version
     at venice871_sim3's shape: the benchmark's scene
@@ -1636,7 +1716,8 @@ INVDIST_SPANS = ("ss.edge_terms", "ss.rows", "ss.landmarks", "ss.pairs", "ss.ass
 def _sim3_invdist_phase(dev) -> None:
     """sim3-invdist-venice: the cell venice871_sim3_invdist.lm's solve at
     its full size (seed 0) through its benchmark route: the plan's counts
-    against INVDIST_COUNTS; the slot-sum kernel at (7, 1) against its plain
+    against INVDIST_COUNTS; the inverse-distance edge kernel's four forms on
+    the start graph (``_check_invdist_kernels``); the slot-sum kernel at (7, 1) against its plain
     version on the engine's own terms (each entry within (n_s + dl) 2^-52 S,
     as schur-kernels); one warm solve traced for the device ms of each layer
     per LM iteration, three timed (one slot-sum launch a damped step); the
@@ -1648,6 +1729,7 @@ def _sim3_invdist_phase(dev) -> None:
     from portbench import harness, traces
     from portbench.reference import sim3_invdist_lm as ref_mod
     from portbench.routes.sim3_invdist_lm import Route
+    from slampp_tpu_torch.ops import invdist_kernels as ik
     from slampp_tpu_torch.ops import schur_kernels as sk
     from slampp_tpu_torch.ops.segments import grouped_segsum_first
     from slampp_tpu_torch.ops.small_blocks import inverse_spd_small
@@ -1660,6 +1742,8 @@ def _sim3_invdist_phase(dev) -> None:
     p = ss.plan
     counts = {"n_ternary": p.n_ternary, "n_rows": p.n_rows, "n_pairs": p.n_pairs,
               "n_heads": p.n_heads, "n_landmarks": p.n_l, "n_obs": route.lm.system.n_edges}
+    _check_invdist_kernels(route.start, {})
+    torch.cuda.empty_cache()
 
     # the slot sums at (7, 1) on the engine's terms, kernel against plain
     terms = ss._edge_terms(route.start)
@@ -1696,6 +1780,7 @@ def _sim3_invdist_phase(dev) -> None:
     layers = {name: 1e3 * sec / iters[0] for name in INVDIST_SPANS
               if (sec := view.range_device_s(name)) is not None}
     sk.reset_launches()
+    ik.reset_launches()
     t1 = time.perf_counter()
     n_it = 0
     for _ in range(3):
@@ -1704,6 +1789,9 @@ def _sim3_invdist_phase(dev) -> None:
     torch.cuda.synchronize(dev)
     rate = n_it / (time.perf_counter() - t1)
     launches = dict(sk.launches)  # the slot sums once a damped step
+    # each inverse-distance form: the damping scale's terms or the start's
+    # chi2, then once an iteration
+    invdist_launches = dict(ik.launches)
     peak = torch.cuda.max_memory_allocated(dev)
     out = route.output(raw)
     out = {k: v.clone() for k, v in out.items()}
@@ -1719,10 +1807,12 @@ def _sim3_invdist_phase(dev) -> None:
     ok = (counts["n_ternary"] == INVDIST_COUNTS["n_ternary"]
           and counts["n_pairs"] == INVDIST_COUNTS["n_pairs"]
           and excess <= 0.0 and slot["same_bits"] and launches == {"slot_sums": n_it}
+          and invdist_launches == {k: 3 + n_it for k in invdist_launches}
           and all(within.values()))
     _line("sim3-invdist-venice", ok, time.perf_counter() - t0, counts=counts, setup_s=setup_s,
           slot_sums=slot, layer_device_ms=layers, idle_pct=view.idle_pct(),
           lm_iters_per_s=rate, iterations=n_it, slot_launches=launches,
+          invdist_launches=invdist_launches,
           memory_peak_bytes=peak, checks=nums,
           limits=cell["limits"], within=within, reference=ref_mod.summary(ref),
           reference_s=reference_s)

@@ -98,18 +98,29 @@ def assemble_dense(graph: GraphArrays) -> Tuple[torch.Tensor, torch.Tensor, torc
     return H[:N, :N], g[:N], chi2
 
 
+def _fused_slot_hessians(et, terms):
+    """J_a^T W J_a of each slot a from an edge type's fused terms, whose
+    tuple follows the edge's kind (``EdgeType.fused_terms``): Hii, Hjj and
+    D_lm of a ternary type, D_lm of a unary one, H_pose and D_lm of a
+    pose-landmark one."""
+    if et.arity == 3:
+        return terms[0], terms[1], terms[5]
+    if et.arity == 1:
+        return terms[:1]
+    return terms[0], terms[2]
+
+
 def max_edge_hessian_diag(graph: GraphArrays) -> torch.Tensor:
     """max over edges and slots of max diag(J_a^T W J_a), the LM initial
     damping's scale (JAX ``solvers/lm._max_edge_hessian_diag``; reference
     f_Max_VertexHessianDiagValue, NonlinearSolver_Lambda_LM.h:152-199); a
-    pose-landmark type that takes its fused terms (``takes_fused``) reads
-    J_a^T W J_a of its two slots from their Hpp and Dl."""
+    type that takes its fused terms (``takes_fused``) reads J_a^T W J_a of
+    its slots from them."""
     best = torch.zeros((), dtype=torch.float64, device=graph.device)
     for name, ea in graph.edges.items():
         et = get_edge_type(name)
         if takes_fused(et, ea):
-            Hpp, _, Dl = et.fused_terms(ea, graph.states, None)[:3]
-            blocks = (Hpp, Dl)
+            blocks = _fused_slot_hessians(et, et.fused_terms(ea, graph.states, None))
         else:
             _, jacs = et.jacobian_fn(slot_states(et, ea, graph.states), ea.meas)
             blocks = (torch.einsum("eji,ejk,ekl->eil", J, ea.sigma_inv, J) for J in jacs)

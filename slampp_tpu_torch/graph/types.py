@@ -15,14 +15,23 @@ Conventions as in the JAX package: ``error_fn`` is the residual
 
 * ``EdgeType.robust_weight_fn(r (E, res_dim), sigma_inv (E, res_dim, res_dim)) -> (E,)``
   the IRLS weight that multiplies ``sigma_inv`` in assembly (models/robust.py).
-* ``EdgeType.fused_terms(ea, states, order) -> (H_pose, g_pose, D_lm, g_lm, B, chi2)``
-  and ``EdgeType.fused_chi2(ea, states) -> chi2``: a pose-landmark edge
-  type's fused forms (a hand-written kernel on the card,
-  ops/sim3_kernels.py), which the sparse Schur engine's edge terms,
+* ``EdgeType.fused_terms(ea, states, order)`` and
+  ``EdgeType.fused_chi2(ea, states) -> chi2``: an edge type's fused forms
+  (a hand-written kernel on the card, ops/sim3_kernels.py,
+  ops/invdist_kernels.py), which the sparse Schur engine's edge terms,
   ``assembly.edge_chi2`` and ``assembly.max_edge_hessian_diag`` take in
   place of ``jacobian_fn`` / ``error_fn`` for CUDA operands
-  (``assembly.takes_fused``); rows of the terms in ``order`` ((E,) int64,
-  or None for the edge order).
+  (``assembly.takes_fused``).  The terms' tuple depends on the edge's kind,
+  with H_ab = J_a^T W J_b and g_a = J_a^T W r of slots a, b, and chi2 =
+  sum of r^T W r over the valid edges last:
+
+  - binary pose-landmark: (H_pose, g_pose, D_lm, g_lm, B = J_pose^T W J_lm,
+    chi2), rows in ``order`` ((E,) int64, or None for the edge order);
+  - ternary, one landmark and two poses i, j in slot order: (Hii, Hjj,
+    Hij, gi, gj, D_lm, g_lm, B (2E, bs, dl): rows [0, E) J_i^T W J_lm,
+    [E, 2E) J_j^T W J_lm, chi2), rows in the edge order (``order`` None);
+  - unary landmark: (D_lm, g_lm, chi2), rows in the edge order (``order``
+    None).
 
 The JAX package differentiated each ``error_fn`` through the retractions
 with ``jax.jacfwd`` (``slampp_tpu/core/assembly.py:32-48``).  Here every

@@ -134,24 +134,47 @@ class SparseSchurPlan(NamedTuple):
                                 if isinstance(v, (torch.Tensor, GroupedSegments, SlotTable))})
 
 
-def pl_terms(et, sl: int, ea, states: Dict[str, torch.Tensor]):
-    """A pose-landmark edge type's generic terms in its edge order, its
-    landmark in slot ``sl``: (Hpp, gp, Dl, gl, B, chi2) with W =
-    ``ea.sigma_inv``, Hpp = Jp^T W Jp and gp = (W Jp)^T r of the pose slot,
-    Dl and gl of the landmark slot, B = Jp^T W Jl; chi2 = sum of r^T W r
-    over the valid edges (the terms are not masked)."""
+def generic_terms(et, kind: str, sl, ea, states: Dict[str, torch.Tensor]):
+    """An edge type's generic terms in its edge order, on its
+    ``jacobian_fn``, by the kind ``symbolic`` gives it (landmark in slot
+    ``sl``), with W = ``ea.sigma_inv``, H_ab = J_a^T W J_b and g_a =
+    (W J_a)^T r: pose-landmark (Hpp, gp, D, gl, B = Jp^T W Jl, chi2) of its
+    pose slot p; ternary (Haa, Hbb, Hab, ga, gb, D, gl, B_a, B_b, chi2) of
+    its poses a, b in slot order; pose-pose (H00, H11, H01, g0, g1, chi2), a
+    unary pose's with zero blocks for its second slot; unary landmark (D,
+    gl, chi2); chi2 = sum of r^T W r over the valid edges (the terms are not
+    masked)."""
     r, jacs = et.jacobian_fn(assembly.slot_states(et, ea, states), ea.meas)
     W = ea.sigma_inv
     Wr = torch.einsum("eij,ej->ei", W, r)
     chi2 = torch.where(ea.valid, torch.einsum("ei,ei->e", r, Wr), 0.0).sum()
     WJ = [torch.einsum("eij,ejk->eik", W, J) for J in jacs]
-    sp = 1 - sl
-    return (torch.einsum("eri,erj->eij", jacs[sp], WJ[sp]),
-            torch.einsum("eri,er->ei", WJ[sp], r),
-            torch.einsum("eri,erj->eij", jacs[sl], WJ[sl]),
-            torch.einsum("eri,er->ei", WJ[sl], r),
-            torch.einsum("eri,erj->eij", jacs[sp], WJ[sl]),
-            chi2)
+
+    def H(a, b):
+        return torch.einsum("eri,erj->eij", jacs[a], WJ[b])
+
+    def g(a):
+        return torch.einsum("eri,er->ei", WJ[a], r)
+
+    if kind == "pl":
+        sp = 1 - sl
+        return H(sp, sp), g(sp), H(sl, sl), g(sl), H(sp, sl), chi2
+    if kind == "ter":
+        a, b = (k for k in range(3) if k != sl)
+        return H(a, a), H(b, b), H(a, b), g(a), g(b), H(sl, sl), g(sl), H(a, sl), H(b, sl), chi2
+    if kind == "pp":
+        return H(0, 0), H(1, 1), H(0, 1), g(0), g(1), chi2
+    if kind == "u_pose":
+        Hii, gi = H(0, 0), g(0)
+        return (Hii, torch.zeros_like(Hii), torch.zeros_like(Hii), gi, torch.zeros_like(gi),
+                chi2)
+    return H(0, 0), g(0), chi2
+
+
+def pl_terms(et, sl: int, ea, states: Dict[str, torch.Tensor]):
+    """A pose-landmark edge type's generic terms, landmark in slot ``sl``:
+    (Hpp, gp, Dl, gl, B, chi2), :func:`generic_terms` of kind ``pl``."""
+    return generic_terms(et, "pl", sl, ea, states)
 
 
 def _slot_table(csrc, starts, ends, slot_i, slot_j, pair_off, tflag, pair_e, pair_f,
@@ -516,16 +539,18 @@ class SparseSchurSolver:
     def _edge_terms(self, graph: GraphArrays):
         """Per-edge contributions in the host's routing order: (pp_Hii,
         pp_Hjj, pp_Hij, pp_gi, pp_gj, pl_Hpp, pl_gp, pl_D, pl_gl, pl_B, chi2),
-        the pl_* arrays in landmark-sorted order.  A pose-landmark type that
-        takes its fused terms (``assembly.takes_fused``: ops/sim3_kernels.py
-        on the card) takes them in place of :func:`pl_terms`; where it is the
-        only type with landmark rows, they come in the landmark order
-        already.  A ternary edge's two poses give its pp_* terms, as a
-        pose-pose edge's do; where some edges are ternary, pl_Hpp and pl_gp
-        are the binary pose-landmark edges' alone (in their type and pool
-        order), pl_D and pl_gl those of every edge with a landmark, and pl_B
-        the couplings in the plan's coupling order (``cpl_pose``), which
-        ``ss.rows`` sums per (landmark, pose)."""
+        the pl_* arrays in landmark-sorted order.  A type that takes its
+        fused terms (``assembly.takes_fused``: ops/sim3_kernels.py and
+        ops/invdist_kernels.py on the card) takes them in place of
+        :func:`generic_terms`; where a pose-landmark type is the only type
+        with landmark rows, they come in the landmark order already.  A
+        ternary edge's two poses give its pp_* terms, as a pose-pose edge's
+        do; where some edges are ternary, pl_Hpp and pl_gp are the binary
+        pose-landmark edges' alone (in their type and pool order), pl_D and
+        pl_gl those of every edge with a landmark, and pl_B the couplings in
+        the plan's coupling order (``cpl_pose``), which ``ss.rows`` sums per
+        (landmark, pose).  A list of one contribution is passed on as it
+        is, not copied."""
         p = self.plan
         rows = p.rows is not None
         bs, dl = p.bs, p.dl
@@ -534,67 +559,44 @@ class SparseSchurSolver:
         Hpp, gp, Dl, gl, Bc = [], [], [], [], []
         chi2 = torch.zeros((), dtype=dt, device=dev)
         lm_sorted = False
+        # the lists each kind's terms go to, in its terms' order; a generic
+        # ternary type's two couplings both go to Bc, a fused one's as one
+        # (2E, bs, dl) block
+        accs = {"pl": (Hpp, gp, Dl, gl, Bc), "ter": (Hii, Hjj, Hij, gi, gj, Dl, gl, Bc, Bc),
+                "pp": (Hii, Hjj, Hij, gi, gj), "u_pose": (Hii, Hjj, Hij, gi, gj),
+                "u_lm": (Dl, gl)}
         for tname, kind, sl in self._type_meta:
             et = get_edge_type(tname)
             ea = graph.edges[tname]
-            if kind == "pl":
-                if assembly.takes_fused(et, ea):
-                    lm_sorted = self._lm_rows_fused
-                    terms = et.fused_terms(ea, graph.states, p.lm_sort if lm_sorted else None)
-                else:
-                    terms = pl_terms(et, sl, ea, graph.states)
-                for acc, t in zip((Hpp, gp, Dl, gl, Bc), terms):
-                    acc.append(t)
-                chi2 = chi2 + terms[5]
-                continue
-            r, jacs = et.jacobian_fn(assembly.slot_states(et, ea, graph.states), ea.meas)
-            W = ea.sigma_inv
-            Wr = torch.einsum("eij,ej->ei", W, r)
-            chi2 = chi2 + torch.where(ea.valid, torch.einsum("ei,ei->e", r, Wr), 0.0).sum()
-            WJ = [torch.einsum("eij,ejk->eik", W, J) for J in jacs]
-            if kind == "ter":
-                a, b = (k for k in range(3) if k != sl)
-                Hii.append(torch.einsum("eri,erj->eij", jacs[a], WJ[a]))
-                Hjj.append(torch.einsum("eri,erj->eij", jacs[b], WJ[b]))
-                Hij.append(torch.einsum("eri,erj->eij", jacs[a], WJ[b]))
-                gi.append(torch.einsum("eri,er->ei", WJ[a], r))
-                gj.append(torch.einsum("eri,er->ei", WJ[b], r))
-                Dl.append(torch.einsum("eri,erj->eij", jacs[sl], WJ[sl]))
-                gl.append(torch.einsum("eri,er->ei", WJ[sl], r))
-                Bc.append(torch.einsum("eri,erj->eij", jacs[a], WJ[sl]))
-                Bc.append(torch.einsum("eri,erj->eij", jacs[b], WJ[sl]))
-            elif kind == "pp":
-                Hii.append(torch.einsum("eri,erj->eij", jacs[0], WJ[0]))
-                Hjj.append(torch.einsum("eri,erj->eij", jacs[1], WJ[1]))
-                Hij.append(torch.einsum("eri,erj->eij", jacs[0], WJ[1]))
-                gi.append(torch.einsum("eri,er->ei", WJ[0], r))
-                gj.append(torch.einsum("eri,er->ei", WJ[1], r))
-            elif kind == "u_pose":
-                Hii.append(torch.einsum("eri,erj->eij", jacs[0], WJ[0]))
-                Hjj.append(torch.zeros_like(Hii[-1]))
-                Hij.append(torch.zeros_like(Hii[-1]))
-                gi.append(torch.einsum("eri,er->ei", WJ[0], r))
-                gj.append(torch.zeros_like(gi[-1]))
-            else:  # u_lm
-                Dl.append(torch.einsum("eri,erj->eij", jacs[0], WJ[0]))
-                gl.append(torch.einsum("eri,er->ei", WJ[0], r))
-                if not rows:
-                    Hpp.append(r.new_zeros((r.shape[0], bs, bs)))
-                    gp.append(r.new_zeros((r.shape[0], bs)))
-                    Bc.append(r.new_zeros((r.shape[0], bs, dl)))
+            fused = assembly.takes_fused(et, ea)
+            if kind == "u_lm" and not rows:
+                n = ea.meas.shape[0]
+                Hpp.append(torch.zeros((n, bs, bs), dtype=dt, device=dev))
+                gp.append(torch.zeros((n, bs), dtype=dt, device=dev))
+                Bc.append(torch.zeros((n, bs, dl), dtype=dt, device=dev))
+            if fused and kind == "pl":
+                lm_sorted = self._lm_rows_fused
+                terms = et.fused_terms(ea, graph.states, p.lm_sort if lm_sorted else None)
+            elif fused:  # ternary or unary landmark: the edge order
+                terms = et.fused_terms(ea, graph.states, None)
+            else:
+                terms = generic_terms(et, kind, sl, ea, graph.states)
+            for acc, t in zip(accs[kind], terms[:-1]):
+                acc.append(t)
+            chi2 = chi2 + terms[-1]
 
         def cat(xs, shp):
+            if len(xs) == 1:
+                return xs[0]
             return torch.cat(xs, 0) if xs else torch.zeros((0,) + shp, dtype=dt, device=dev)
 
         s = p.lm_sort
+        lm_rows = [cat(Hpp, (bs, bs)), cat(gp, (bs,)), cat(Dl, (dl, dl)), cat(gl, (dl,)),
+                   cat(Bc, (bs, dl))]
         if rows:
-            lm_rows = (cat(Hpp, (bs, bs)), cat(gp, (bs,)), cat(Dl, (dl, dl))[s],
-                       cat(gl, (dl,))[s], cat(Bc, (bs, dl)))
-        elif lm_sorted:
-            lm_rows = (Hpp[0], gp[0], Dl[0], gl[0], Bc[0])
-        else:
-            lm_rows = (cat(Hpp, (bs, bs))[s], cat(gp, (bs,))[s], cat(Dl, (dl, dl))[s],
-                       cat(gl, (dl,))[s], cat(Bc, (bs, dl))[s])
+            lm_rows[2:4] = lm_rows[2][s], lm_rows[3][s]
+        elif not lm_sorted:
+            lm_rows = [t[s] for t in lm_rows]
         return (cat(Hii, (bs, bs)), cat(Hjj, (bs, bs)), cat(Hij, (bs, bs)),
                 cat(gi, (bs,)), cat(gj, (bs,)), *lm_rows, chi2)
 

@@ -25,11 +25,13 @@ projection layer is differentiated elementwise.  The other edge types take
 JAX package did for every type).
 
 The xyz G edge (``edge_p2c_xyz_sim3_g``, the Sim(3) bundle adjustment of
-world points) also has fused forms (``ops/sim3_kernels.py``: one
-hand-written float64 kernel) for its sparse Schur terms, its chi2 and the
-LM damping scale, which CUDA operands take; on the CPU it keeps the plain
-path.  ``edge_p2c_invdepth_sim3_g``, which shares ``_g_jacobians``, and
-every other type stay on the plain path.
+world points) and the inverse-distance LO and LS edges (the local-landmark
+path) also have fused forms (``ops/sim3_kernels.py``,
+``ops/invdist_kernels.py``: hand-written float64 kernels) for their sparse
+Schur terms, their chi2 and the LM damping scale, which CUDA operands
+take; on the CPU they keep the plain path.  ``edge_p2c_invdepth_sim3_g``,
+which shares ``_g_jacobians``, and every other type stay on the plain
+path.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from slampp_tpu_torch.graph.types import (
 )
 from slampp_tpu_torch.models import ba  # noqa: F401  (registers xyz)
 from slampp_tpu_torch.models import se3 as _se3_model  # noqa: F401  (registers pose3d)
-from slampp_tpu_torch.ops import sim3_kernels
+from slampp_tpu_torch.ops import invdist_kernels, sim3_kernels
 
 
 def _camsim3_retract(state, delta):
@@ -289,6 +291,17 @@ def _xyz_g_operands(ea, states):
     return (states["xyz"], states["camsim3"], ea.local_idx, ea.meas, ea.sigma_inv, ea.valid)
 
 
+def _invdist_lo_operands(ea, states):
+    """The fused forms' operands of the LO edges (slots invdist, camsim3,
+    camsim3)."""
+    return (states["invdist"], states["camsim3"], ea.local_idx, ea.meas, ea.sigma_inv, ea.valid)
+
+
+def _invdist_ls_operands(ea, states):
+    """The fused forms' operands of the LS edges (slot invdist)."""
+    return (states["invdist"], ea.local_idx, ea.meas, ea.sigma_inv, ea.valid)
+
+
 def _edge(name, vertex_types, res_dim, meas_dim, error_fn, jacobian_fn=None, **fused):
     return register_edge_type(EdgeType(
         name=name, vertex_types=vertex_types, res_dim=res_dim, meas_dim=meas_dim,
@@ -310,10 +323,18 @@ EDGE_P2C_INVDEPTH_SIM3_LS = _edge("edge_p2c_invdepth_sim3_ls", ("invdepth",), 2,
 EDGE_P2C_XYZ_SIM3_LO = _edge("edge_p2c_xyz_sim3_lo", ("xyz",) + _LO, 2, 2, _p2c_xyz_lo)
 EDGE_P2C_INVDEPTH_SIM3_LO = _edge("edge_p2c_invdepth_sim3_lo", ("invdepth",) + _LO, 2, 2,
                                   _p2c_invdepth_lo)
-EDGE_P2C_INVDIST_SIM3_LS = _edge("edge_p2c_invdist_sim3_ls", ("invdist",), 2, 7,
-                                 _p2c_invdist_ls, _p2c_invdist_ls_jacobians)
-EDGE_P2C_INVDIST_SIM3_LO = _edge("edge_p2c_invdist_sim3_lo", ("invdist",) + _LO, 2, 2,
-                                 _p2c_invdist_lo, _p2c_invdist_lo_jacobians)
+# the inverse-distance edges' terms come in the edge order (``order`` None)
+EDGE_P2C_INVDIST_SIM3_LS = _edge(
+    "edge_p2c_invdist_sim3_ls", ("invdist",), 2, 7, _p2c_invdist_ls, _p2c_invdist_ls_jacobians,
+    fused_terms=lambda ea, st, order: invdist_kernels.invdist_ls_terms(
+        *_invdist_ls_operands(ea, st)),
+    fused_chi2=lambda ea, st: invdist_kernels.invdist_ls_chi2(*_invdist_ls_operands(ea, st)))
+EDGE_P2C_INVDIST_SIM3_LO = _edge(
+    "edge_p2c_invdist_sim3_lo", ("invdist",) + _LO, 2, 2, _p2c_invdist_lo,
+    _p2c_invdist_lo_jacobians,
+    fused_terms=lambda ea, st, order: invdist_kernels.invdist_lo_terms(
+        *_invdist_lo_operands(ea, st)),
+    fused_chi2=lambda ea, st: invdist_kernels.invdist_lo_chi2(*_invdist_lo_operands(ea, st)))
 EDGE_POSE_SIM3 = _edge("edge_pose_sim3", ("sim3", "sim3"), 7, 7, _sim3_pose_pose)
 EDGE_POSE_CAM_SIM3 = _edge("edge_pose_cam_sim3", ("pose3d", "camsim3"), 7, 7, _pose_cam_sim3)
 

@@ -1,6 +1,7 @@
 """Build and load the hand-written native code (``csrc/``): the CUDA
-kernels (``dense_kernels.cu``, ``ba_kernels.cu``, ``sim3_kernels.cu`` and
-``schur_kernels.cu``, with ``nvcc``, into one library) and the host
+kernels (``dense_kernels.cu``, ``ba_kernels.cu``, ``sim3_kernels.cu``,
+``invdist_kernels.cu`` and ``schur_kernels.cu``, with ``nvcc``, into one
+library) and the host
 ordering (``slampp_native.cpp``, with the host C++ compiler;
 core/ordering.py).
 
@@ -28,6 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "dense_kernels.cu"
 _BA_SOURCE = _PKG / "csrc" / "ba_kernels.cu"
 _SIM3_SOURCE = _PKG / "csrc" / "sim3_kernels.cu"
+_INVDIST_SOURCE = _PKG / "csrc" / "invdist_kernels.cu"
 _SCHUR_SOURCE = _PKG / "csrc" / "schur_kernels.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -84,8 +86,8 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(compile_shared(
-                (_SOURCE, _BA_SOURCE, _SIM3_SOURCE, _SCHUR_SOURCE), _nvcc(), NVCC_FLAGS,
-                build_info)))
+                (_SOURCE, _BA_SOURCE, _SIM3_SOURCE, _INVDIST_SOURCE, _SCHUR_SOURCE), _nvcc(),
+                NVCC_FLAGS, build_info)))
             ptr, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"slampp_chol_{dt}")
@@ -115,6 +117,15 @@ def load() -> ctypes.CDLL:
             lib.slampp_sim3_g_terms_f64.restype = i32
             lib.slampp_sim3_g_chi2_f64.argtypes = [ptr] * 6 + [i64] + [ptr] * 3
             lib.slampp_sim3_g_chi2_f64.restype = i32
+            lib.slampp_invdist_workspace.argtypes = [i64, ctypes.POINTER(i64)]
+            lib.slampp_invdist_workspace.restype = i32
+            for form, argtypes in (("lo_terms", [ptr] * 6 + [i64] + [ptr] * 11),
+                                   ("lo_chi2", [ptr] * 6 + [i64] + [ptr] * 3),
+                                   ("ls_terms", [ptr] * 5 + [i64] + [ptr] * 5),
+                                   ("ls_chi2", [ptr] * 5 + [i64] + [ptr] * 3)):
+                fn = getattr(lib, f"slampp_invdist_{form}_f64")
+                fn.argtypes = argtypes
+                fn.restype = i32
             lib.slampp_slot_sums_f64.argtypes = [i32, i32] + [ptr] * 12 + [i32, i32, ptr, ptr]
             lib.slampp_slot_sums_f64.restype = i32
             lib.slampp_error_string.argtypes = [i32]
